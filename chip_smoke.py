@@ -10,27 +10,39 @@ the CUDA toolkit:
 Phases (any failure exits non-zero and prints no result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build both kernels from ``opendht_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build the three kernel sources from ``opendht_tpu_torch/csrc`` (nvcc,
+   sm_90a, one process each, all started together);
 3. kernel vs plain on the card, bit-equal (all outputs are integers:
    tolerance 0 on max_abs_err): K1 (round merge) on 16,384 adversarial
-   rows, K3 (exact k-nearest) at 1M nodes x 256 targets;
+   rows, K2 (the fused round) on 16,384 adversarial rows of a churned
+   65,536-node swarm, K3 (exact k-nearest) at 1M nodes x 256 targets,
+   K3′ (its k=1 call) at the same size;
 4. whole path, card vs CPU: a 4,096-node swarm, 256 lookups from fixed
-   origins, healthy, churned and with plain tables — found/hops/done
-   bit-equal;
+   origins, healthy, churned and with plain tables, the fused-round
+   engine healthy and churned — found/hops/done bit-equal — then
+   ``traced_lookup`` (results and every trace field), the lifecycle
+   rounds, and ``heal_swarm`` from the same draws (byte-equal tables);
 5. the main path: ``build_swarm`` at 10M nodes, ``lookup`` of 1,048,576
-   targets (one warm-up run, then timed runs), ``true_closest`` on 512
-   targets for recall@8, with every kernel launch count read around it;
+   targets from fixed origins (one warm-up run, then timed runs),
+   ``true_closest`` on 512 targets for recall@8, with every kernel
+   launch count read around it; then the slice's path, the same lookups
+   with ``merge_impl="fused-round"`` (K2), bit-equal to the K1 engine's,
+   with ``key_owners`` (K3′) on 512 targets, its counts read around it;
+   one ``traced_lookup`` at full width; ``churn(0.25)`` and
+   ``heal_swarm`` at 10M nodes with lookups before and after the heal;
 6. kernel times with CUDA events at the main path's shapes (K1 on the
-   first round's real merge inputs, K3 at 10M x 512), each beside its
-   bound and its plain version's time, and each compared with its plain
-   version once more at that shape;
-7. one more main-path lookup under ``torch.profiler``: device time by
-   kernel name and the device's busy share; then each layer of a lookup
-   (origin sampling, init, one round's inputs, its merge, finalize)
-   timed alone with CUDA events.
+   first round's real merge inputs, K2 on the first round's real
+   prelude, K3 and K3′ at 10M x 512), each beside its bound and its
+   plain version's time, and each compared with its plain version once
+   more at that shape;
+7. one more lookup of each engine under ``torch.profiler``: device time
+   by kernel name and the device's busy share; then each layer of a
+   lookup (origin sampling, init, one round's inputs, its merge, the
+   fused prelude, K2, finalize) timed alone with CUDA events.
 
-Prints a ``main_path`` line, a ``kernels`` JSON line, the card line,
-and last ``{"ok": true, "device": {...}}``.
+Prints ``main_path``, ``fused_path``, ``traced_path`` and ``heal``
+lines, a ``kernels`` JSON line, the card line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -139,6 +151,46 @@ def merge_inputs(n_rows: int, gen, dev, s: int = 14, c: int = 64,
     return [x.contiguous() for x in (fi, fd, fq, r_i, r_d)]
 
 
+def fused_inputs(n_rows: int, gen, dev):
+    """Adversarial K2 inputs: the prelude of a real round (after two
+    rounds, so frontiers hold queried nodes and responses repeat them) on
+    a churned 65,536-node swarm's augmented table, then bent: invalid
+    solicitations (q_hit false), dead ones (e_hit), ``sel_pos = -1``,
+    and ``w0`` at 0, at B-2 and past ``b_total - 2``.  Returns the
+    argument list of ``kernels.fused_round``."""
+    import torch
+    from opendht_tpu_torch.models import swarm as sw
+
+    cfg = sw.SwarmConfig.for_nodes(1 << 16, merge_impl="fused-round")
+    swarm = sw.churn(sw.build_swarm(cfg, gen), gen, 0.25, cfg)
+    tg = torch.randint(0, 2**32, (n_rows, 5), generator=gen, device=dev)
+    st = sw.lookup_init(swarm, cfg, tg,
+                        sw._sample_origins(gen, swarm.alive, n_rows))
+    for _ in range(2):
+        st = sw.lookup_step(swarm, cfg, st)
+    _, args = sw.fused_round_inputs(swarm, cfg, st)
+    args = [a.clone() for a in args]
+    _, _, _, _, _, sel, _, pos, w0, q_hit, e_hit = args
+    b_total = args[0].shape[1] // (3 * cfg.bucket_k)
+
+    def some(frac):
+        return torch.rand(sel.shape, generator=gen, device=dev) < frac
+
+    idle = some(0.1)
+    q_hit[idle], e_hit[idle] = False, False
+    sel[idle] = torch.randint(0, cfg.n_nodes, (int(idle.sum()),),
+                              generator=gen, device=dev, dtype=torch.int32)
+    dead = some(0.1)
+    q_hit[dead], e_hit[dead] = False, True
+    pos[some(0.05)] = -1
+    edges = torch.tensor([0, cfg.n_buckets - 2, b_total - 1, b_total + 3],
+                         dtype=torch.int32, device=dev)
+    bent = some(0.2)
+    w0[bent] = edges[torch.randint(0, 4, (int(bent.sum()),), generator=gen,
+                                   device=dev)]
+    return args
+
+
 def phase_kernels_vs_plain(dev, failures) -> None:
     import torch
     from opendht_tpu_torch.ops import kernels
@@ -171,6 +223,27 @@ def phase_kernels_vs_plain(dev, failures) -> None:
             f"(tolerance 0)")
         if err:
             failures.append(f"K3 disagrees (err {err})")
+    got = kernels.nearest_ids(ids, tg)
+    want = kernels.nearest_ids_plain(ids, tg)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [want])
+    log(f"K3' nearest_ids vs plain, {n} nodes x {l} targets: "
+        f"max_abs_err={err} (tolerance 0)")
+    if err:
+        failures.append(f"K3' disagrees (err {err})")
+
+    args = fused_inputs(16_384, gen, dev)
+    for keep in (14, 3):
+        got = kernels.fused_round(*args, bucket_k=8, quorum=8, keep=keep)
+        want = kernels.fused_round_plain(*args, bucket_k=8, quorum=8,
+                                         keep=keep)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        log(f"K2 fused_round vs plain, 16384 adversarial rows of a churned "
+            f"65536-node swarm, keep={keep}: max_abs_err={err} "
+            f"(tolerance 0)")
+        if err:
+            failures.append(f"K2 keep={keep} disagrees (err {err})")
 
 
 def phase_card_vs_cpu(dev, failures) -> None:
@@ -179,6 +252,7 @@ def phase_card_vs_cpu(dev, failures) -> None:
 
     cfg = sw.SwarmConfig.for_nodes(4096, device="cpu")
     cfg_plain = cfg._replace(aug_tables=False)
+    cfg_fused = cfg._replace(merge_impl="fused-round")
     gen = torch.Generator().manual_seed(5)
     cpu_swarm = sw.build_swarm(cfg, gen, device="cpu")
     churned = sw.churn(cpu_swarm, gen, 0.25, cfg)
@@ -186,7 +260,9 @@ def phase_card_vs_cpu(dev, failures) -> None:
     targets = torch.randint(0, 2**32, (256, 5), generator=gen)
     for name, s_cpu, c in (("healthy", cpu_swarm, cfg),
                            ("churned", churned, cfg),
-                           ("plain tables", plain, cfg_plain)):
+                           ("plain tables", plain, cfg_plain),
+                           ("fused-round healthy", cpu_swarm, cfg_fused),
+                           ("fused-round churned", churned, cfg_fused)):
         origins = sw._sample_origins(gen, s_cpu.alive, 256)
         want = sw.lookup(s_cpu, c, targets, origins=origins, device="cpu")
         s_card = sw.Swarm(*(t.to(dev) for t in s_cpu))
@@ -199,21 +275,147 @@ def phase_card_vs_cpu(dev, failures) -> None:
             f"median hops {float(want.hops.float().median())})")
         if not same:
             failures.append(f"card and CPU lookups differ ({name})")
+    card = sw.Swarm(*(t.to(dev) for t in churned))
+    origins = sw._sample_origins(gen, churned.alive, 256)
+    for compact in (True, False):
+        want, want_tr = sw.traced_lookup(churned, cfg, targets,
+                                         origins=origins, compact=compact,
+                                         device="cpu")
+        got, got_tr = sw.traced_lookup(card, cfg, targets, origins=origins,
+                                       compact=compact, device=dev)
+        same = (all(torch.equal(a, b.cpu()) for a, b in zip(want, got))
+                and all(torch.equal(a, b.cpu())
+                        for a, b in zip(want_tr, got_tr)))
+        log(f"traced_lookup card vs CPU, churned, compact={compact}: "
+            f"{'bit-equal' if same else 'DIFFERENT'} (results and every "
+            f"trace field; {int(want_tr.rounds)} rounds)")
+        if not same:
+            failures.append(f"traced lookups differ (compact={compact})")
+    for c in (cfg, cfg_fused):
+        st_cpu, st_card = {}, {}
+        sw.lookup(churned, c, targets, origins=origins, stats=st_cpu,
+                  track_lifecycle=True, device="cpu")
+        sw.lookup(card, c, targets, origins=origins, stats=st_card,
+                  track_lifecycle=True, device=dev)
+        same = all(torch.equal(st_cpu[k], st_card[k].cpu())
+                   for k in ("admitted_round", "completed_round"))
+        log(f"lifecycle rounds card vs CPU, merge_impl={c.merge_impl}: "
+            f"{'bit-equal' if same else 'DIFFERENT'}")
+        if not same:
+            failures.append(f"lifecycle rounds differ ({c.merge_impl})")
+    for c, s_cpu in ((cfg, churned), (cfg_plain, sw.churn(plain, gen, 0.25,
+                                                          cfg_plain))):
+        draws = [torch.rand((c.n_nodes, c.bucket_k), generator=gen)
+                 for _ in range(c.n_buckets)]
+        s_card = sw.Swarm(*(t.to(dev) for t in s_cpu))
+        s_cpu = s_cpu._replace(tables=s_cpu.tables.clone())
+        sw.heal_swarm(s_cpu, c, lambda b: draws[b])
+        sw.heal_swarm(s_card, c, lambda b: draws[b].to(dev))
+        same = torch.equal(s_cpu.tables, s_card.tables.cpu())
+        log(f"heal_swarm card vs CPU, aug_tables={c.aug_tables}: "
+            f"{'byte-equal' if same else 'DIFFERENT'} tables")
+        if not same:
+            failures.append(f"healed tables differ (aug={c.aug_tables})")
     # The card's own origin draws on a churned swarm take the
     # inverse-CDF search; every origin must be alive.
-    card_churned = sw.Swarm(*(t.to(dev) for t in churned))
     o = sw._sample_origins(torch.Generator(device=dev).manual_seed(1),
-                           card_churned.alive, 4096)
-    if not bool(card_churned.alive[o.long()].all()):
+                           card.alive, 4096)
+    if not bool(card.alive[o.long()].all()):
         failures.append("origins drawn on the card include dead nodes")
 
 
-def phase_kernel_times(swarm, cfg, targets, gen, launches,
+def timed_lookups(sw, swarm, cfg, targets, origins, stats):
+    """One warm-up lookup (filling ``stats``), then ``TIMED_RUNS`` timed
+    ones from the same origins: ``(last result, wall seconds)``."""
+    import torch
+    res = sw.lookup(swarm, cfg, targets, origins=origins, stats=stats)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        res = sw.lookup(swarm, cfg, targets, origins=origins)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return res, walls
+
+
+def recall_at(truth, found) -> float:
+    """Mean fraction of each row's true closest nodes among ``found``."""
+    match = ((truth[:, :, None] == found[:, None, :])
+             & (truth[:, :, None] >= 0))
+    return float(match.any(dim=2).float().mean())
+
+
+def phase_traced(sw, swarm, cfg, targets, origins, untraced, card,
+                 failures) -> None:
+    """One ``traced_lookup`` at full width: the same results as the
+    untraced run, a final done gauge of L, a non-increasing
+    ``active_rows``."""
+    import torch
+    t0 = time.perf_counter()
+    res, trace = sw.traced_lookup(swarm, cfg, targets, origins=origins)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = sw.trace_to_dict(trace, targets.shape[0])
+    c = d["counters"]
+    same = all(torch.equal(a, b) for a, b in zip(res, untraced))
+    active_ok = all(a >= b for a, b in zip(c["active_rows"],
+                                           c["active_rows"][1:]))
+    log("traced_path " + json.dumps({
+        "wall_s": wall, "same_as_untraced": same, "rounds": d["rounds"],
+        "done": c["done"], "active_rows": c["active_rows"],
+        "requests": c["requests"], "drops": c["drops"],
+        "wasted_row_rounds": d["wasted_row_rounds"], "card": card}))
+    if not same:
+        failures.append("traced results differ from the untraced ones")
+    if c["done"][-1] != targets.shape[0] or not active_ok:
+        failures.append("trace gauges: final done != L or active_rows "
+                        "increased")
+
+
+def phase_heal(sw, swarm, cfg, targets, gen, card, failures) -> None:
+    """``churn(0.25)`` and ``heal_swarm`` at full size on a copy of the
+    table: lookups before and after, and every non-empty member of the
+    healed table alive."""
+    import torch
+    churned = sw.churn(swarm, gen, 0.25, cfg)
+    churned = churned._replace(tables=churned.tables.clone())
+    truth = sw.true_closest(churned, cfg, targets[:N_RECALL])
+    out = {"kill_frac": 0.25, "alive_frac":
+           float(churned.alive.float().mean())}
+    origins = sw._sample_origins(gen, churned.alive, targets.shape[0])
+    res = sw.lookup(churned, cfg, targets, origins=origins)
+    out["before"] = {"done_frac": float(res.done.float().mean()),
+                     "recall_at_8": recall_at(truth, res.found[:N_RECALL])}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sw.heal_swarm(churned, cfg, gen)
+    torch.cuda.synchronize()
+    out["heal_s"] = time.perf_counter() - t0
+    res = sw.lookup(churned, cfg, targets, origins=origins)
+    out["after"] = {"done_frac": float(res.done.float().mean()),
+                    "recall_at_8": recall_at(truth, res.found[:N_RECALL])}
+    k, dead_members = cfg.bucket_k, 0
+    for b in range(cfg.n_buckets):
+        rows = churned.tables[:, b * 3 * k:b * 3 * k + 2 * k].to(torch.int64)
+        idx = ((rows[:, :k] & 0xFFFF) | ((rows[:, k:] & 0xFFFF) << 16))
+        idx = torch.where(idx >= 2**31, -1, idx)
+        dead_members += int((~churned.alive[idx.clamp(min=0)]
+                             & (idx >= 0)).sum())
+    out["dead_members_after_heal"] = dead_members
+    out["card"] = card
+    log("heal " + json.dumps(out))
+    if dead_members:
+        failures.append(f"{dead_members} dead members after heal_swarm")
+
+
+def phase_kernel_times(swarm, cfg, targets, gen, launches, launches_f,
                        failures) -> list:
     """Each kernel timed with CUDA events at the main path's shapes (K1
-    on the first round's real merge inputs, K3 at N x 512 targets),
-    beside its bound and its plain version's time, and held bit-equal to
-    the plain version there once more.  Returns the ``kernels`` rows."""
+    on the first round's real merge inputs, K2 on the same round's real
+    prelude, K3 and K3′ at N x 512 targets), beside its bound and its
+    plain version's time, and held bit-equal to the plain version there
+    once more.  Returns the ``kernels`` rows."""
     import torch
     from opendht_tpu_torch.models import swarm as sw
     from opendht_tpu_torch.ops import kernels
@@ -222,7 +424,8 @@ def phase_kernel_times(swarm, cfg, targets, gen, launches,
     l, n = targets.shape[0], swarm.ids.shape[0]
     st = sw.lookup_init(swarm, cfg, targets,
                         sw._sample_origins(gen, swarm.alive, l))
-    _, m_args = sw.round_inputs(swarm, cfg, st)
+    _, _, m_args = sw.round_inputs(swarm, cfg, st)
+    _, f_args = sw.fused_round_inputs(swarm, cfg, st)
     del st
     q, keep = cfg.quorum, cfg.search_width
     rows = 1 << 17
@@ -277,7 +480,30 @@ def phase_kernel_times(swarm, cfg, targets, gen, launches,
         f"same nodes {k3r_same}")
     if not k3r_same:
         failures.append("K3 on shuffled ids found other nodes")
-    for kn, err in (("K1", k1_err), ("K3", k3_err)):
+    k2_ms, k2_plain_ms, k2_err, k2_bound, k2_by = time_k2(f_args, cfg, rows)
+    log(f"K2 at L={l}, S={f_args[2].shape[1]}, A={cfg.alpha}: kernel "
+        f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound {k2_bound:.4f} "
+        f"ms ({k2_by}), max_abs_err={k2_err}")
+    del f_args
+
+    k3p_ms = time_cuda(lambda: kernels.nearest_ids(swarm.ids, tg), reps=5)
+    t0 = time.perf_counter()
+    k3p_want = kernels.nearest_ids_plain(swarm.ids, tg)
+    torch.cuda.synchronize()
+    k3p_plain_ms = (time.perf_counter() - t0) * 1e3
+    k3p_got = kernels.nearest_ids(swarm.ids, tg)
+    k3p_err = max_abs_err([k3p_got], [k3p_want])
+    col0 = kernels.nearest_k_ids(swarm.ids, tg, 8)[:, 0]
+    k3p_col0 = torch.equal(k3p_got, col0)
+    k3p_bound, k3p_by = bound(nbytes(swarm.ids, tg) + N_RECALL * 4,
+                              n * N_RECALL)
+    log(f"K3' at N={n} x L={N_RECALL}: kernel {k3p_ms:.4f} ms, plain "
+        f"{k3p_plain_ms:.1f} ms, bound {k3p_bound:.4f} ms ({k3p_by}), "
+        f"max_abs_err={k3p_err}, equals K3 k=8 column 0: {k3p_col0}")
+    if not k3p_col0:
+        failures.append("K3' differs from column 0 of K3's k=8 answer")
+    for kn, err in (("K1", k1_err), ("K2", k2_err), ("K3", k3_err),
+                    ("K3'", k3p_err)):
         if err:
             failures.append(f"{kn} disagrees with its plain version at the "
                             f"main path's shape (err {err})")
@@ -288,13 +514,61 @@ def phase_kernel_times(swarm, cfg, targets, gen, launches,
          "launches": launches["merge_round"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
+        {"name": "fused_round", "route": "cuda",
+         "source": "opendht_tpu_torch/csrc/fused_round.cu",
+         "replaces": "opendht_tpu/ops/pallas_kernels.py:499",
+         "launches": launches_f["fused_round"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": None},
         {"name": "nearest_k_ids", "route": "cuda",
          "source": "opendht_tpu_torch/csrc/nearest_k.cu",
          "replaces": "opendht_tpu/ops/pallas_kernels.py:159",
          "launches": launches["nearest_k_ids"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
+        {"name": "nearest_ids", "route": "cuda",
+         "source": "opendht_tpu_torch/csrc/nearest_k.cu",
+         "replaces": "opendht_tpu/ops/pallas_kernels.py:580",
+         "launches": launches_f["nearest_ids"], "max_abs_err": k3p_err,
+         "ms": k3p_ms, "plain_ms": k3p_plain_ms, "bound_ms": k3p_bound,
+         "bound_by": k3p_by, "library_ms": None},
     ]
+
+
+def time_k2(args, cfg, rows: int):
+    """K2 on ``args`` (a round's prelude at full width): kernel and
+    plain times (the plain version in ``rows``-row chunks, to bound its
+    merge planes), the largest difference, and the bound: the window
+    bytes the answered solicitations need (``q_hit``·6K·2) plus the
+    frontier, prelude, target and output bytes, against the rank scan's
+    L·W² compares."""
+    import torch
+    from opendht_tpu_torch.ops import kernels
+
+    kw = dict(bucket_k=cfg.bucket_k, quorum=cfg.quorum,
+              keep=cfg.search_width)
+    l = args[1].shape[0]
+
+    def k2():
+        return kernels.fused_round(*args, **kw)
+
+    def k2_plain():
+        return [kernels.fused_round_plain(
+            args[0], *(a[i:i + rows] for a in args[1:]), **kw)
+            for i in range(0, l, rows)]
+
+    ms = time_cuda(k2, reps=20, warmup=3)
+    plain_ms = time_cuda(k2_plain, reps=2)
+    want = [torch.cat(parts) for parts in zip(*k2_plain())]
+    err = max_abs_err(k2(), want)
+    del want
+    s, a = args[2].shape[1], args[5].shape[1]
+    w = s + 2 * cfg.bucket_k * a
+    out_w = min(cfg.search_width, w)
+    windows = int(args[9].sum()) * 6 * cfg.bucket_k * 2
+    nb = windows + nbytes(*args[1:]) + l * (out_w * 13 + 1)
+    b_ms, b_by = bound(nb, l * w * w)
+    return ms, plain_ms, err, b_ms, b_by
 
 
 def profile_lookup(sw, swarm, cfg, targets, gen, top: int = 14) -> dict:
@@ -328,12 +602,14 @@ def layer_times(sw, swarm, cfg, targets, gen) -> dict:
     """Milliseconds of each layer of one main-path lookup, timed alone
     with CUDA events at the main path's shapes: origin sampling, init,
     the first round's select + respond + frontier update, its merge
-    (K1), and the exact finalize on the state one round later."""
+    (K1), the fused path's prelude and its K2 on the same state, and the
+    exact finalize on the state one round later."""
     from opendht_tpu_torch.ops import kernels
     origins = sw._sample_origins(gen, swarm.alive, targets.shape[0])
     st = sw.lookup_init(swarm, cfg, targets, origins)
-    sel, m_args = sw.round_inputs(swarm, cfg, st)
-    st1 = sw._merge_round(st, cfg, sel, m_args)
+    sel, q_hit, m_args = sw.round_inputs(swarm, cfg, st)
+    st1 = sw._merge_round(st, cfg, sel, q_hit, m_args)
+    _, f_args = sw.fused_round_inputs(swarm, cfg, st)
     out = {
         "sample_origins": time_cuda(lambda: sw._sample_origins(
             gen, swarm.alive, targets.shape[0]), reps=3),
@@ -343,6 +619,11 @@ def layer_times(sw, swarm, cfg, targets, gen) -> dict:
             swarm, cfg, st), reps=3),
         "merge_round_k1": time_cuda(lambda: kernels.merge_round(
             *m_args, quorum=cfg.quorum, keep=cfg.search_width), reps=3),
+        "fused_prelude": time_cuda(lambda: sw.fused_round_inputs(
+            swarm, cfg, st), reps=3),
+        "fused_round_k2": time_cuda(lambda: kernels.fused_round(
+            *f_args, bucket_k=cfg.bucket_k, quorum=cfg.quorum,
+            keep=cfg.search_width), reps=3),
         "finalize": time_cuda(lambda: sw._finalize(swarm.ids, st1, cfg),
                               reps=3),
     }
@@ -387,20 +668,11 @@ def main() -> int:
     build_swarm_s = time.perf_counter() - t0
     targets = torch.randint(0, 2**32, (N_LOOKUPS, 5), generator=gen,
                             device=dev)
+    origins = sw._sample_origins(gen, swarm.alive, N_LOOKUPS)
     stats: dict = {}
-    res = sw.lookup(swarm, cfg, targets, gen, stats=stats)   # warm-up
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(TIMED_RUNS):
-        t0 = time.perf_counter()
-        res = sw.lookup(swarm, cfg, targets, gen)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    res, walls = timed_lookups(sw, swarm, cfg, targets, origins, stats)
     truth = sw.true_closest(swarm, cfg, targets[:N_RECALL])
-    found = res.found[:N_RECALL]
-    match = ((truth[:, :, None] == found[:, None, :])
-             & (truth[:, :, None] >= 0))
-    recall = float(match.any(dim=2).float().mean())
+    recall = recall_at(truth, res.found[:N_RECALL])
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -418,18 +690,62 @@ def main() -> int:
         "launches": launches, "card": card,
     }
     log("main_path " + json.dumps(main))
-    for k_name, count in launches.items():
-        if count <= 0:
+    for k_name in ("merge_round", "nearest_k_ids"):
+        if launches[k_name] <= 0:
             failures.append(f"{k_name} was not launched on the main path")
     if done_frac != 1.0:
         failures.append(f"done_frac {done_frac} != 1.0")
     if recall < 0.99:
         failures.append(f"recall@8 {recall} < 0.99")
 
+    # ---- the slice's path: the fused round ------------------------------
+    cfg_f = cfg._replace(merge_impl="fused-round")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    stats_f: dict = {}
+    res_f, walls_f = timed_lookups(sw, swarm, cfg_f, targets, origins,
+                                   stats_f)
+    owners = sw.key_owners(swarm, cfg_f, targets[:N_RECALL])
+    recall_f = recall_at(truth, res_f.found[:N_RECALL])
+    owner_hit = float((res_f.found[:N_RECALL, 0] == owners).float().mean())
+    # Every node is alive here, so K3' must name K3's nearest.
+    owners_exact = torch.equal(owners, truth[:, 0])
+    torch.cuda.synchronize()
+    launches_f = dict(kernels.LAUNCHES)
+    same = all(torch.equal(a, b) for a, b in zip(res, res_f))
+    wall_f = statistics.median(walls_f)
+    done_f = float(res_f.done.float().mean())
+    log("fused_path " + json.dumps({
+        "merge_impl": "fused-round", "n_nodes": N_NODES,
+        "n_lookups": N_LOOKUPS, "lookups_per_s": N_LOOKUPS / wall_f,
+        "wall_s": wall_f, "walls_s": walls_f,
+        "k1_engine_wall_s": wall, "same_as_k1_engine": same,
+        "done_frac": done_f, "recall_at_8": recall_f,
+        "owner_found_frac": owner_hit, "owners_equal_k3": owners_exact,
+        "rounds_dispatched": stats_f.get("rounds_dispatched"),
+        "widths": stats_f.get("widths"), "launches": launches_f,
+        "card": card}))
+    for k_name in ("fused_round", "nearest_ids"):
+        if launches_f[k_name] <= 0:
+            failures.append(f"{k_name} was not launched on the fused path")
+    if launches_f["merge_round"]:
+        failures.append("the fused path launched K1")
+    if not same:
+        failures.append("the fused-round engine differs from the K1 engine")
+    if done_f != 1.0 or recall_f < 0.99 or not owners_exact:
+        failures.append(f"fused path: done_frac {done_f}, recall@8 "
+                        f"{recall_f}, owners equal K3's nearest: "
+                        f"{owners_exact}")
+    phase_traced(sw, swarm, cfg_f, targets, origins, res_f, card, failures)
+    del res_f, owners
+    phase_heal(sw, swarm, cfg_f, targets, gen, card, failures)
+
     kernel_rows = phase_kernel_times(swarm, cfg, targets, gen, launches,
-                                     failures)
+                                     launches_f, failures)
     log("profile " + json.dumps(profile_lookup(sw, swarm, cfg, targets,
                                                gen)))
+    log("profile_fused " + json.dumps(profile_lookup(sw, swarm, cfg_f,
+                                                     targets, gen)))
     log("layers_ms " + json.dumps(layer_times(sw, swarm, cfg, targets,
                                               gen)))
 

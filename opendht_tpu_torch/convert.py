@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.swarm import LookupState, Swarm
+from .models.swarm import LookupState, LookupTrace, Swarm
 
 
 def u32_tensor(x, device) -> torch.Tensor:
@@ -33,14 +33,30 @@ def swarm_from_numpy(ids, tables, alive, device="cpu") -> Swarm:
                  alive=torch.from_numpy(np.array(alive, bool)).to(device))
 
 
+def _tensor(x, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
 def state_from_numpy(targets, idx, dist, queried, done, hops,
+                     admitted_round=None, completed_round=None,
                      device="cpu") -> LookupState:
-    """A JAX ``LookupState`` (without its lifecycle fields) as numpy
-    arrays → the port's state."""
+    """A JAX ``LookupState`` as numpy arrays → the port's state; the
+    lifecycle fields stay ``None`` where not given."""
     def t(x, dtype):
-        return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+        return None if x is None else _tensor(x, dtype, device)
 
     return LookupState(targets=u32_tensor(targets, device),
                        idx=t(idx, np.int32), dist=u32_tensor(dist, device),
                        queried=t(queried, bool), done=t(done, bool),
-                       hops=t(hops, np.int32))
+                       hops=t(hops, np.int32),
+                       admitted_round=t(admitted_round, np.int32),
+                       completed_round=t(completed_round, np.int32))
+
+
+def trace_from_numpy(*fields, device="cpu") -> LookupTrace:
+    """A JAX ``LookupTrace`` as numpy arrays, in field order (nine
+    ``[max_steps]`` counter rows, then ``rounds``) → the port's trace."""
+    if len(fields) != len(LookupTrace._fields):
+        raise ValueError(f"a LookupTrace has {len(LookupTrace._fields)} "
+                         f"fields, got {len(fields)}")
+    return LookupTrace(*[_tensor(x, np.int32, device) for x in fields])

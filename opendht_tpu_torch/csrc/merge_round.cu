@@ -24,47 +24,17 @@
 // stored with coalesced writes and `done` is one warp vote.  Nothing
 // is carried between rows and no sort network is needed.  This is the
 // simple form: the O(W^2) scan runs on the CUDA cores, which keeps it
-// above the memory bound for now.
+// above the memory bound for now.  The per-row tail is
+// merge_core::merge_row (merge_core.cuh), which K2 shares.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "merge_core.cuh"
+
 namespace {
 
 constexpr int kRowsPerBlock = 8;
-constexpr unsigned kMax = 0xFFFFFFFFu;
-
-struct RowSmem {
-  unsigned* idx;      // [W] idx as u32
-  unsigned* d0;       // [W] d0, all-ones where idx < 0
-  unsigned* eff;      // [W] d0, all-ones for duplicates and empties
-  unsigned char* q;   // [W] queried (responses: 0)
-  unsigned char* dup; // [W] duplicate or empty
-  int* o_idx;         // [out_w]
-  unsigned* o_d0;     // [out_w]
-  unsigned char* o_q; // [out_w]
-};
-
-__host__ __device__ inline size_t align8(size_t x) { return (x + 7) & ~size_t(7); }
-
-__host__ __device__ inline size_t row_smem_bytes(int w, int out_w) {
-  return align8(size_t(w) * 4) * 3 + align8(w) * 2 +
-         align8(size_t(out_w) * 4) * 2 + align8(out_w);
-}
-
-__device__ inline RowSmem carve(unsigned char* base, int w, int out_w) {
-  RowSmem r;
-  unsigned char* p = base;
-  r.idx = reinterpret_cast<unsigned*>(p); p += align8(size_t(w) * 4);
-  r.d0 = reinterpret_cast<unsigned*>(p); p += align8(size_t(w) * 4);
-  r.eff = reinterpret_cast<unsigned*>(p); p += align8(size_t(w) * 4);
-  r.q = p; p += align8(w);
-  r.dup = p; p += align8(w);
-  r.o_idx = reinterpret_cast<int*>(p); p += align8(size_t(out_w) * 4);
-  r.o_d0 = reinterpret_cast<unsigned*>(p); p += align8(size_t(out_w) * 4);
-  r.o_q = p;
-  return r;
-}
 
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 merge_round_kernel(const int* __restrict__ fr_idx,
@@ -81,81 +51,22 @@ merge_round_kernel(const int* __restrict__ fr_idx,
   const long long row = (long long)blockIdx.x * kRowsPerBlock + warp;
   if (row >= n_rows) return;
   const int w = s + c;
-  RowSmem r = carve(smem + row_smem_bytes(w, out_w) * warp, w, out_w);
-
-  // Stage the row: frontier then responses (the input ordinal).
-  for (int j = lane; j < w; j += 32) {
-    int id;
-    long long d;
-    unsigned char q = 0;
+  const merge_core::RowSmem r = merge_core::carve(
+      smem + merge_core::row_smem_bytes(w, out_w) * warp, w, out_w);
+  // Entry j: the frontier, then the responses (the input ordinal).
+  auto entry = [&](int j, int& id, unsigned& d, unsigned char& q) {
     if (j < s) {
       id = fr_idx[row * s + j];
-      d = fr_d0[row * s + j];
+      d = (unsigned)(fr_d0[row * s + j] & 0xFFFFFFFFll);
       q = fr_q[row * s + j] ? 1 : 0;
     } else {
       id = resp_idx[row * c + (j - s)];
-      d = resp_d0[row * c + (j - s)];
+      d = (unsigned)(resp_d0[row * c + (j - s)] & 0xFFFFFFFFll);
+      q = 0;
     }
-    r.idx[j] = (unsigned)id;
-    r.d0[j] = id < 0 ? kMax : (unsigned)(d & 0xFFFFFFFFll);
-    r.q[j] = q;
-  }
-  for (int k = lane; k < out_w; k += 32) {
-    r.o_idx[k] = -1;
-    r.o_d0[k] = kMax;
-    r.o_q[k] = 0;
-  }
-  __syncwarp();
-
-  // Dedup: a response repeats any earlier entry with its index (an
-  // equal valid index implies the earlier entry is valid too).
-  for (int j = lane; j < w; j += 32) {
-    const unsigned id = r.idx[j];
-    bool dup = (int)id < 0;
-    if (!dup && j >= s) {
-      for (int i = 0; i < j; ++i) {
-        if (r.idx[i] == id) { dup = true; break; }
-      }
-    }
-    r.dup[j] = dup ? 1 : 0;
-    r.eff[j] = dup ? kMax : r.d0[j];
-  }
-  __syncwarp();
-
-  // Rank = entries strictly before under (eff, idx_u, ordinal).
-  for (int j = lane; j < w; j += 32) {
-    if (r.dup[j]) continue;
-    const unsigned ej = r.eff[j], ij = r.idx[j];
-    int rank = 0;
-    for (int i = 0; i < w; ++i) {
-      const unsigned ei = r.eff[i], ii = r.idx[i];
-      rank += (ei < ej) || (ei == ej && (ii < ij || (ii == ij && i < j)));
-    }
-    if (rank < out_w) {
-      r.o_idx[rank] = (int)ij;
-      r.o_d0[rank] = r.d0[j];
-      r.o_q[rank] = r.q[j];
-    }
-  }
-  __syncwarp();
-
-  bool head_valid = false, head_unq = false, any_unq = false;
-  for (int k = lane; k < out_w; k += 32) {
-    const int id = r.o_idx[k];
-    const bool q = r.o_q[k] != 0;
-    o_idx[row * out_w + k] = id;
-    o_d0[row * out_w + k] = (long long)r.o_d0[k];
-    o_q[row * out_w + k] = q;
-    if (id >= 0 && !q) any_unq = true;
-    if (k < quorum && id >= 0) {
-      head_valid = true;
-      if (!q) head_unq = true;
-    }
-  }
-  const bool synced = __any_sync(0xFFFFFFFFu, head_valid) &&
-                      !__any_sync(0xFFFFFFFFu, head_unq);
-  const bool exhausted = !__any_sync(0xFFFFFFFFu, any_unq);
-  if (lane == 0) done[row] = synced || exhausted;
+  };
+  merge_core::merge_row(r, lane, s, w, out_w, quorum, row, entry, o_idx,
+                        o_d0, o_q, done);
 }
 
 }  // namespace
@@ -166,7 +77,8 @@ extern "C" int merge_round_launch(const void* fr_idx, const void* fr_d0,
                                   void* o_d0, void* o_q, void* done,
                                   long long n_rows, int s, int c, int out_w,
                                   int quorum, void* stream) {
-  const size_t smem = row_smem_bytes(s + c, out_w) * kRowsPerBlock;
+  const size_t smem =
+      merge_core::row_smem_bytes(s + c, out_w) * kRowsPerBlock;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         merge_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -7,13 +7,21 @@ in lock-step — each round solicits the α best unqueried shortlist nodes,
 decodes what they answer from their bucket rows, and merges the answers
 into the shortlist — until every lookup's ``quorum`` closest known nodes
 are queried.  The results are bit-identical to the JAX engine's on the
-same swarm, targets and origins (``tests/test_torch_swarm.py``).
+same swarm, targets and origins (``tests/test_torch_swarm.py``,
+``tests/test_torch_fused_round.py``, ``tests/test_torch_trace.py``).
 
 Device placement is explicit: entry points take ``device`` (default
 ``"cuda"``) and raise where there is no card, unless ``device="cpu"``.
-On the card the round merge is the K1 kernel and the recall ground
-truth the K3 kernel (:mod:`opendht_tpu_torch.ops.kernels`); on the CPU
-both are their plain PyTorch versions.
+On the card the round merge is the K1 kernel (or, with
+``merge_impl="fused-round"``, the whole round is the K2 kernel) and the
+recall ground truth the K3 kernel
+(:mod:`opendht_tpu_torch.ops.kernels`); on the CPU each is its plain
+PyTorch version.
+
+Beside the engine: the flight recorder (:class:`LookupTrace`,
+:func:`traced_lookup`), the per-request lifecycle plane
+(:func:`init_lifecycle`, ``lookup(track_lifecycle=True)``) and routing
+table maintenance after churn (:func:`heal_swarm`).
 
 The round loop runs on the host and reads the device back once per
 burst of rounds (the fused pending/watermark pair), never per round.
@@ -27,7 +35,9 @@ from typing import NamedTuple
 import torch
 
 from ..ops import kernels
-from ..ops.u32 import MASK32, U32_MAX, as_i32, lexsort, prefix_len32, shl32
+from ..ops.round_parts import (fold_solicitations, gather_pair_windows,
+                               unpack_pair_window)
+from ..ops.u32 import MASK32, U32_MAX, lexsort, prefix_len32, shl32
 from ..ops.xor_metric import (
     N_LIMBS,
     closest_nodes_batched,
@@ -90,7 +100,7 @@ def table_bytes(cfg: "SwarmConfig") -> int:
     return cfg.n_nodes * cfg.n_buckets * cfg.bucket_k * 4
 
 
-MERGE_IMPLS = ("auto", "sort")
+MERGE_IMPLS = ("auto", "sort", "fused-round")
 
 
 class SwarmConfig(NamedTuple):
@@ -104,7 +114,9 @@ class SwarmConfig(NamedTuple):
     ``merge_impl`` picks the round merge: ``"auto"`` is the K1 kernel
     on the card and the plain sort-free rank merge on the CPU;
     ``"sort"`` (the two-pass sorted reference the tests pin it to) runs
-    on the CPU only.
+    on the CPU only; ``"fused-round"`` (opt-in, the JAX package's
+    ``"pallas-round"``) runs each plain round as one K2 launch on the
+    card and as K2's plain version on the CPU — augmented tables only.
     """
     n_nodes: int
     n_buckets: int
@@ -150,9 +162,12 @@ SwarmConfig.__new__ = _swarmconfig_checked_new
 
 
 def resolve_merge_impl(cfg: SwarmConfig, device: torch.device) -> str:
-    """The round merge for tensors on ``device``: ``"kernel"`` on the
-    card (where only ``"auto"`` is accepted), else ``"rank"`` (the
-    plain rank merge) for ``"auto"`` or ``"sort"``."""
+    """The round for tensors on ``device``: ``"fused-round"`` (K2, or its
+    plain version on the CPU) where asked; otherwise ``"kernel"`` (K1)
+    on the card, where ``"sort"`` is refused, and ``"rank"`` (the plain
+    rank merge) or ``"sort"`` on the CPU."""
+    if cfg.merge_impl == "fused-round":
+        return "fused-round"
     if device.type == "cuda":
         if cfg.merge_impl != "auto":
             raise ValueError(
@@ -176,19 +191,143 @@ class Swarm(NamedTuple):
 class LookupState(NamedTuple):
     """Lock-step lookup state, all ``[L, ...]``.  The shortlist carries
     only the first 32 distance bits; the result is re-sorted on all 160
-    bits once per lookup (:func:`_finalize`)."""
+    bits once per lookup (:func:`_finalize`).
+
+    The lifecycle plane (``None`` unless :func:`init_lifecycle` attached
+    it) records the round each row was admitted at and the round its
+    ``done`` bit first went True.  It is a pure observer: no round
+    decision reads it, so results are the same with it on or off."""
     targets: torch.Tensor  # [L,5] int64
     idx: torch.Tensor      # [L,S] int32 shortlist node indices
     dist: torch.Tensor     # [L,S] int64 first-limb distance (all-ones = empty)
     queried: torch.Tensor  # [L,S] bool
     done: torch.Tensor     # [L] bool
     hops: torch.Tensor     # [L] int32 solicitation rounds until done
+    admitted_round: torch.Tensor | None = None   # [L] int32 (-1 = free)
+    completed_round: torch.Tensor | None = None  # [L] int32 (-1 = inflight)
 
 
 class LookupResult(NamedTuple):
     found: torch.Tensor  # [L,quorum] int32 closest queried nodes (-1 pad)
     hops: torch.Tensor   # [L] int32
     done: torch.Tensor   # [L] bool
+
+
+def init_lifecycle(st: LookupState, rnd: int = 0) -> LookupState:
+    """Attach the lifecycle plane to a fresh state: every row admitted at
+    round ``rnd``, completion pending (or ``rnd`` where already done).
+    Steps must then receive their round index (``rnd=``), which the
+    loops pass."""
+    l = st.done.shape[0]
+    r = torch.full((l,), rnd, dtype=torch.int32, device=st.done.device)
+    return st._replace(admitted_round=r,
+                       completed_round=torch.where(st.done, r, -1))
+
+
+def _advance(st: LookupState, sel: torch.Tensor, merged,
+             rnd: int | None) -> LookupState:
+    """The state after a round from its merge ``merged = (idx, d0,
+    queried, done)``: the done bit, a hop for every pending row that
+    solicited, and the lifecycle stamp — ``completed_round`` set to
+    ``rnd`` where the done bit went True (the plane needs ``rnd``)."""
+    f_idx, f_dist, f_q, done_merge = merged
+    active = ~st.done & (sel >= 0).any(dim=1)
+    done = st.done | done_merge
+    completed = st.completed_round
+    if completed is not None:
+        if rnd is None:
+            raise ValueError(
+                "lifecycle tracking needs the round index: pass rnd= to "
+                "the step (the loops do when the fields are present)")
+        completed = torch.where(done & ~st.done, rnd, completed)
+    return LookupState(
+        targets=st.targets, idx=f_idx, dist=f_dist, queried=f_q,
+        done=done, hops=st.hops + active.to(torch.int32),
+        admitted_round=st.admitted_round, completed_round=completed)
+
+
+class LookupTrace(NamedTuple):
+    """Flight recorder: per-round lookup telemetry, each counter a
+    ``[max_steps]`` int32 row indexed by solicitation round, updated on
+    the device by the round itself (no host sync); read once with
+    :func:`trace_to_dict`.
+
+    * ``requests`` — solicitations issued (α-slots holding a node);
+    * ``replies`` — candidate entries that reached the merge;
+    * ``drops`` — solicitations that returned nothing (dead nodes);
+    * ``poison``, ``strikes``, ``convictions`` — the chaos engine's
+      (0 here);
+    * ``churn`` — shortlist slots whose occupant changed;
+    * ``done`` — lookups done at round end (gauge, monotone);
+    * ``active_rows`` — lookups pending at round entry (gauge, monotone
+      non-increasing);
+    * ``rounds`` — ``[]`` int32: rounds executed."""
+    requests: torch.Tensor
+    replies: torch.Tensor
+    drops: torch.Tensor
+    poison: torch.Tensor
+    strikes: torch.Tensor
+    convictions: torch.Tensor
+    churn: torch.Tensor
+    done: torch.Tensor
+    active_rows: torch.Tensor
+    rounds: torch.Tensor
+
+
+def empty_lookup_trace(cfg: SwarmConfig, device=None) -> LookupTrace:
+    """A zero trace on ``device`` (default ``"cuda"``); each field owns
+    its tensor, since the traced round adds into it in place."""
+    dev = resolve_device(device)
+    rows = [torch.zeros((cfg.max_steps,), dtype=torch.int32, device=dev)
+            for _ in LookupTrace._fields[:-1]]
+    return LookupTrace(*rows, rounds=torch.zeros((), dtype=torch.int32,
+                                                 device=dev))
+
+
+def merge_traces(traces) -> LookupTrace:
+    """Combine the traces of disjoint lookup batches: counters sum and
+    ``rounds`` takes the max.  The gauges ``done`` and ``convictions``
+    are first forward-filled past each trace's own exit round (a batch
+    that finished early still holds all its lookups done), and
+    ``active_rows`` is filled with 0 there (nothing of it is pending),
+    so the merged gauges stay monotone."""
+    def fill_forward(t: LookupTrace) -> LookupTrace:
+        r = t.rounds.clamp(min=1)
+        idx = torch.arange(t.done.shape[0], device=t.done.device)
+        ff = lambda row: torch.where(idx < r, row, row[r - 1])  # noqa: E731
+        return t._replace(done=ff(t.done), convictions=ff(t.convictions),
+                          active_rows=torch.where(idx < r, t.active_rows, 0))
+
+    out = fill_forward(traces[0])
+    for t in traces[1:]:
+        t = fill_forward(t)
+        out = LookupTrace(*[
+            torch.maximum(a, b) if name == "rounds" else a + b
+            for name, a, b in zip(LookupTrace._fields, out, t)])
+    return out
+
+
+def trace_to_dict(trace: LookupTrace, n_lookups: int | None = None) -> dict:
+    """The whole trace read back in one transfer → a JSON-able dict with
+    the counters cut to the executed rounds (the JAX package's schema,
+    ``done_frac`` and ``wasted_row_rounds`` where ``n_lookups`` is
+    given)."""
+    rows = torch.stack(list(trace[:-1]))
+    host = torch.cat([rows.flatten(), trace.rounds.reshape(1).to(rows.dtype)]
+                     ).tolist()
+    n_steps = rows.shape[1]
+    rounds = int(host[-1])
+    r = max(1, rounds)
+    counters = {name: [int(v) for v in host[i * n_steps:i * n_steps + r]]
+                for i, name in enumerate(LookupTrace._fields[:-1])}
+    out = {"rounds": rounds, "max_steps": n_steps, "counters": counters}
+    if n_lookups:
+        out["n_lookups"] = int(n_lookups)
+        out["done_frac"] = [round(d / n_lookups, 6)
+                            for d in counters["done"]]
+        out["wasted_row_rounds"] = int(sum(
+            max(0, n_lookups - a) for a in counters["active_rows"]))
+    return out
 
 
 def _require_on(swarm: Swarm, dev: torch.device) -> None:
@@ -212,7 +351,8 @@ def _build_ids(generator: torch.Generator, cfg: SwarmConfig,
 
 
 def _build_bucket(tables: torch.Tensor, ids0: torch.Tensor, b: int,
-                  u: torch.Tensor, cfg: SwarmConfig) -> None:
+                  u: torch.Tensor, cfg: SwarmConfig,
+                  alive: torch.Tensor | None = None) -> None:
     """Fill bucket ``b`` of every node's table in place from the uniform
     draws ``u [N,K]`` (float32).
 
@@ -222,14 +362,24 @@ def _build_bucket(tables: torch.Tensor, ids0: torch.Tensor, b: int,
     histogram cumsums.  Members are stratified uniform samples of that
     range.  The float32 sampler keeps the JAX package's operation order
     as separate ops — fusing them could let a contraction move a
-    ``floor`` across an integer and change the table."""
+    ``floor`` across an integer and change the table.
+
+    With ``alive`` (``[N]`` bool), members are sampled among alive
+    nodes only: the histogram weighs alive nodes, so samples are alive
+    ranks, and a ``searchsorted`` over the alive cumsum maps each rank
+    back to its node (ids are sorted, so alive-rank order is id order
+    in every dyadic range) — :func:`heal_swarm`'s maintenance."""
     n, b_total, k = cfg.n_nodes, cfg.n_buckets, cfg.bucket_k
     if b_total > 26:
         raise ValueError("prefix histogram capped at 2^26 bins")
     inclusive = b == b_total - 1
     d = b if inclusive else b + 1          # prefix depth of the interval
     pref = ids0 >> (32 - d)
-    counts = torch.bincount(pref, minlength=1 << b_total)
+    if alive is None:
+        counts = torch.bincount(pref, minlength=1 << b_total)
+    else:      # integer-valued float64 weights: exact below 2^53
+        counts = torch.bincount(pref, weights=alive.to(torch.float64),
+                                minlength=1 << b_total).to(torch.int64)
     bounds = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
     p = pref if inclusive else pref ^ 1    # own vs sibling interval
     lo, hi = bounds[p], bounds[p + 1]
@@ -242,6 +392,9 @@ def _build_bucket(tables: torch.Tensor, ids0: torch.Tensor, b: int,
     scaled = torch.clamp(scaled, 0.0, float(n - 1))
     samp = lo[:, None] + scaled.to(torch.int64)
     samp = torch.clamp(samp, lo[:, None], (hi - 1)[:, None])
+    if alive is not None:  # the (r+1)-th alive node: first cumsum > r
+        acum = torch.cumsum(alive.to(torch.int64), 0)
+        samp = torch.searchsorted(acum, samp, right=True).clamp(0, n - 1)
     samp = torch.where((hi > lo)[:, None], samp, -1)          # [N,K]
     if cfg.aug_tables:
         m0 = ids0[samp.clamp(0, n - 1)]
@@ -289,6 +442,27 @@ def build_swarm(cfg: SwarmConfig, generator: torch.Generator | None = None,
                  alive=torch.ones((n,), dtype=torch.bool, device=dev))
 
 
+def heal_swarm(swarm: Swarm, cfg: SwarmConfig, draws) -> Swarm:
+    """Routing-table maintenance after churn: refill every bucket in
+    place with members sampled among the alive nodes (the steady state
+    of the reference's bucket expiry and refill).  ``draws`` is a
+    ``torch.Generator`` on the swarm's device, or a function ``b ->``
+    bucket ``b``'s uniforms ``[N,K]`` float32 (a test hands in the JAX
+    package's ``fold_in(key, b)`` draws).  The swarm's table is updated
+    in place; the swarm is returned."""
+    n, k = cfg.n_nodes, cfg.bucket_k
+    if isinstance(draws, torch.Generator):
+        gen = draws
+        draws = lambda b: torch.rand(  # noqa: E731
+            (n, k), generator=gen, dtype=torch.float32,
+            device=swarm.ids.device)
+    ids0 = swarm.ids[:, 0]
+    for b in range(cfg.n_buckets):
+        _build_bucket(swarm.tables, ids0, b, draws(b), cfg,
+                      alive=swarm.alive)
+    return swarm
+
+
 def churn(swarm: Swarm, generator: torch.Generator, kill_frac: float,
           cfg: SwarmConfig) -> Swarm:
     """Kill a uniform fraction of nodes: dead nodes stop answering."""
@@ -300,25 +474,6 @@ def churn(swarm: Swarm, generator: torch.Generator, kill_frac: float,
 # ---------------------------------------------------------------------------
 # respond
 # ---------------------------------------------------------------------------
-
-def _window_d0(s16: torch.Tensor, w: torch.Tensor, target0: torch.Tensor,
-               nid_d0: torch.Tensor) -> torch.Tensor:
-    """First-limb XOR distance rebuilt from a member's 16-bit window
-    (bits ``[w, w+16)`` of its limb 0): the bits above the window are
-    the solicited node's own distance bits, the window supplies the
-    next 16, bits below read as zero.  Broadcasting; every left shift
-    is masked back to 32 bits."""
-    wu = w.clamp(0, 31)
-    t16 = shl32(target0, wu) >> 16
-    d16 = s16 ^ t16
-    lsh = (16 - w).clamp(0, 16)
-    rsh = (w - 16).clamp(0, 16)
-    placed = torch.where(w <= 16, shl32(d16, lsh), d16 >> rsh)
-    hm = torch.where(w > 0,
-                     shl32(torch.full_like(w, MASK32), (32 - w).clamp(0, 31)),
-                     0)
-    return (nid_d0 & hm) | placed
-
 
 def _respond(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
              nid: torch.Tensor, nid_d0: torch.Tensor):
@@ -338,14 +493,10 @@ def _respond(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
     c = prefix_len32(nid_d0)                                    # [L,A]
     ok = (nid >= 0) & swarm.alive[safe]
     if swarm.tables.dtype == torch.uint16:
-        w3 = 3 * k
         c0 = c.clamp(0, b_total - 2)
-        # The 2·3K-wide window straight from the row (an int16 view of
-        # the u16 table: same bytes, fully supported indexing).
-        windows = swarm.tables.view(torch.int16).unfold(1, 2 * w3, w3)
-        win = windows[safe, c0].to(torch.int64) & 0xFFFF     # [L,A,6K]
-        idx, d0 = _unpack_pair_window(win.view(l, a, 2, w3), c0,
-                                      targets[:, 0], nid_d0, ok, k)
+        win = gather_pair_windows(swarm.tables, safe, c0, k)   # [L,A,6K]
+        idx, d0 = unpack_pair_window(win.view(l, a, 2, 3 * k), c0,
+                                     targets[:, 0], nid_d0, ok, k)
         resp, resp_d0 = idx.reshape(l, -1), d0.reshape(l, -1)
     else:
         c0 = c.clamp(0, b_total - 1)
@@ -355,23 +506,6 @@ def _respond(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
         resp = torch.where(ok[..., None], resp, -1).reshape(l, -1)
         resp_d0 = _resp_dist(swarm.ids, cfg, targets, resp)
     return resp, resp_d0, ok
-
-
-def _unpack_pair_window(win: torch.Tensor, w0: torch.Tensor,
-                        target0: torch.Tensor, nid_d0: torch.Tensor,
-                        ok: torch.Tensor, k: int):
-    """Decode bucket-pair windows ``win [L,A,2,3K]`` (u16 values in
-    int64; rows ``[lo K | hi K | s16 K]`` at bucket depths ``w0`` and
-    ``w0 + 1``) into ``(idx [L,A,2,K] int32, d0 [L,A,2,K] int64)``,
-    invalid slots -1 / all-ones.  ``target0 [L]``, ``nid_d0``/``ok``
-    ``[L,A]``."""
-    lo, hi, s16 = win[..., :k], win[..., k:2 * k], win[..., 2 * k:]
-    idx = as_i32(lo | (hi << 16))
-    valid = ok[:, :, None, None] & (idx >= 0)
-    wr = w0[:, :, None, None] + torch.arange(2, device=w0.device)[:, None]
-    d0 = _window_d0(s16, wr, target0[:, None, None, None],
-                    nid_d0[:, :, None, None])
-    return torch.where(valid, idx, -1), torch.where(valid, d0, U32_MAX)
 
 
 def _gather_span(tables: torch.Tensor, node: torch.Tensor,
@@ -433,7 +567,8 @@ def lookup_init(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
 def round_inputs(swarm: Swarm, cfg: SwarmConfig, st: LookupState):
     """The first half of a round: select α, solicit, and fold the
     solicitations' outcomes into the frontier (answered → queried, dead
-    → evicted).  Returns ``(sel, merge_args)`` where ``merge_args`` =
+    → evicted).  Returns ``(sel, q_hit, merge_args)``: ``q_hit [L,A]``
+    marks the solicitations that answered, and ``merge_args`` =
     ``(fr_idx, fr_d0, fr_q, resp_idx, resp_d0)`` are exactly the round
     merge's inputs."""
     n = cfg.n_nodes
@@ -444,27 +579,32 @@ def round_inputs(swarm: Swarm, cfg: SwarmConfig, st: LookupState):
     valid_sel = sel >= 0
     q_hit = valid_sel & sel_alive & answered
     e_hit = valid_sel & ~sel_alive
-    # The JAX engine scatters with mode="drop"; here one-hot compares of
-    # the slot against arange(S) need no out-of-range index at all.
-    slots = torch.arange(st.idx.shape[1], device=sel.device)
-    at = sel_pos[:, :, None] == slots                           # [L,A,S]
-    queried = st.queried | (at & q_hit[:, :, None]).any(dim=1)
-    evict = (at & e_hit[:, :, None]).any(dim=1)
-    fr_idx = torch.where(evict, -1, st.idx)
-    fr_d0 = torch.where(evict, U32_MAX, st.dist)
-    return sel, (fr_idx, fr_d0, queried, resp, resp_d0)
+    fr_idx, fr_d0, queried = fold_solicitations(st.idx, st.dist, st.queried,
+                                                sel_pos, q_hit, e_hit)
+    return sel, q_hit, (fr_idx, fr_d0, queried, resp, resp_d0)
 
 
 def _merge_round(st: LookupState, cfg: SwarmConfig, sel: torch.Tensor,
-                 merge_args, merge_w: int | None = None) -> LookupState:
+                 q_hit: torch.Tensor, merge_args,
+                 merge_w: int | None = None, *,
+                 trace: LookupTrace | None = None, rnd: int | None = None,
+                 done_base: int = 0):
     """The second half of a round: merge, check the sync quorum, count
-    the hop.  Dispatches on :func:`resolve_merge_impl`; the done rule
-    (the JAX engine's ``_sync_done`` plus the exhaustion exit) is
+    the hop, stamp the lifecycle plane.  Dispatches on
+    :func:`resolve_merge_impl` (``"fused-round"`` reaching here — the
+    traced engine — takes K1, as the JAX engine degrades to its
+    merge-only kernel); the done rule (the JAX engine's ``_sync_done``
+    plus the exhaustion exit) is
     :func:`opendht_tpu_torch.ops.kernels.round_done`, which the kernel
-    computes in place."""
+    computes in place.
+
+    With a ``trace`` (and the round index ``rnd``) the round's counters
+    are added into it in place and ``(state, trace)`` is returned;
+    ``done_base`` counts finished rows the compaction ladder keeps out
+    of this dispatch, for the done gauge."""
     fr_idx, fr_d0, fr_q, resp, resp_d0 = merge_args
     impl = resolve_merge_impl(cfg, fr_idx.device)
-    if impl == "kernel":
+    if impl in ("kernel", "fused-round"):
         f_idx, f_dist, f_q, done_merge = kernels.merge_round(
             fr_idx, fr_d0, fr_q, resp, resp_d0, quorum=cfg.quorum,
             keep=cfg.search_width)
@@ -481,20 +621,87 @@ def _merge_round(st: LookupState, cfg: SwarmConfig, sel: torch.Tensor,
                           dim=1),
                 keep=cfg.search_width)
         done_merge = kernels.round_done(f_idx, f_q, cfg.quorum)
-    active = ~st.done & (sel >= 0).any(dim=1)
-    return LookupState(
-        targets=st.targets, idx=f_idx, dist=f_dist, queried=f_q,
-        done=st.done | done_merge,
-        hops=st.hops + active.to(torch.int32))
+    new_st = _advance(st, sel, (f_idx, f_dist, f_q, done_merge), rnd)
+    if trace is None:
+        return new_st
+    if rnd is None:
+        raise ValueError("a traced round needs its round index rnd")
+    if rnd < trace.requests.shape[0]:          # JAX's mode="drop"
+        valid_sel = sel >= 0
+        trace.requests[rnd] += valid_sel.sum().to(torch.int32)
+        trace.replies[rnd] += (resp >= 0).sum().to(torch.int32)
+        trace.drops[rnd] += (valid_sel & ~q_hit).sum().to(torch.int32)
+        trace.churn[rnd] += (f_idx != st.idx).sum().to(torch.int32)
+        trace.done[rnd] = new_st.done.sum().to(torch.int32) + done_base
+        trace.active_rows[rnd] += (~st.done).sum().to(torch.int32)
+        trace.rounds.clamp_(min=rnd + 1)
+    return new_st, trace
 
 
 def lookup_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
-                merge_w: int | None = None) -> LookupState:
+                merge_w: int | None = None, *,
+                rnd: int | None = None) -> LookupState:
     """One lock-step round.  ``merge_w`` prices the plain rank merge at
-    a narrower response width (guarded, bit-identical); the kernel
-    always merges the full width."""
-    sel, merge_args = round_inputs(swarm, cfg, st)
-    return _merge_round(st, cfg, sel, merge_args, merge_w=merge_w)
+    a narrower response width (guarded, bit-identical); the kernels
+    always merge the full width.  ``rnd`` (the loop's round index) is
+    needed only when the state carries the lifecycle plane."""
+    if resolve_merge_impl(cfg, st.idx.device) == "fused-round":
+        return _fused_round_step(swarm, cfg, st, rnd=rnd)
+    sel, q_hit, merge_args = round_inputs(swarm, cfg, st)
+    return _merge_round(st, cfg, sel, q_hit, merge_args, merge_w=merge_w,
+                        rnd=rnd)
+
+
+def fused_round_inputs(swarm: Swarm, cfg: SwarmConfig, st: LookupState):
+    """The fused round's prelude (the JAX engine's ``_fused_round_step``
+    before its kernel call): select α, clip the solicited rows, look up
+    who is alive (the local respond answers every live node, so
+    ``q_hit`` is alive and ``e_hit`` dead), and the bucket-pair start
+    ``w0 = clip(clz(sel_d0), 0, B-2)``.  Returns ``(sel, args)`` with
+    ``args`` exactly :func:`opendht_tpu_torch.ops.kernels.fused_round`'s
+    positional arguments."""
+    if swarm.tables.dtype != torch.uint16:
+        raise ValueError(
+            "merge_impl='fused-round' requires augmented tables "
+            "(SwarmConfig.aug_tables=True): the fused round kernel "
+            "gathers and decodes the u16 bucket-row layout in-kernel")
+    n, b_total = cfg.n_nodes, cfg.n_buckets
+    sel, sel_d0, sel_pos = _select_alpha(st, cfg)
+    sel = torch.where(st.done[:, None], -1, sel)
+    safe = sel.clamp(0, n - 1)
+    valid_sel = sel >= 0
+    sel_alive = valid_sel & swarm.alive[safe.long()]
+    w0 = prefix_len32(sel_d0).clamp(0, b_total - 2)
+    frontier = [x.contiguous() for x in (st.targets[:, 0], st.idx, st.dist,
+                                         st.queried)]
+    return sel, (swarm.tables, *frontier, safe, sel_d0,
+                 sel_pos.to(torch.int32), w0.to(torch.int32), sel_alive,
+                 valid_sel & ~sel_alive)
+
+
+def _fused_round_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+                      rnd: int | None = None) -> LookupState:
+    """One plain round as one K2 launch (``merge_impl="fused-round"``):
+    the prelude :func:`fused_round_inputs`, then
+    :func:`opendht_tpu_torch.ops.kernels.fused_round` — window gather,
+    decode, queried/evict update, merge and quorum check — then the hop
+    count and the lifecycle stamp.  Bit-identical to the composed round
+    (``tests/test_torch_fused_round.py``)."""
+    sel, args = fused_round_inputs(swarm, cfg, st)
+    return _advance(st, sel, kernels.fused_round(
+        *args, bucket_k=cfg.bucket_k, quorum=cfg.quorum,
+        keep=cfg.search_width), rnd)
+
+
+def traced_lookup_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+                       trace: LookupTrace, rnd: int, done_base: int = 0,
+                       merge_w: int | None = None):
+    """One round with the flight recorder on → ``(state, trace)``.  The
+    composed round with K1 under every ``merge_impl`` (the JAX traced
+    engine's fallback for ``"pallas-round"``)."""
+    sel, q_hit, merge_args = round_inputs(swarm, cfg, st)
+    return _merge_round(st, cfg, sel, q_hit, merge_args, merge_w=merge_w,
+                        trace=trace, rnd=rnd, done_base=done_base)
 
 
 def _sample_origins(generator: torch.Generator, alive: torch.Tensor,
@@ -512,10 +719,38 @@ def _sample_origins(generator: torch.Generator, alive: torch.Tensor,
         torch.int32)
 
 
+def _start(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
+           generator, origins, track_lifecycle: bool, device):
+    """Shared entry of :func:`lookup` and :func:`traced_lookup`: the
+    device, the origins (random alive nodes drawn with ``generator``,
+    seeded 0 if omitted, unless given) and the initial state."""
+    dev = resolve_device(device)
+    _require_on(swarm, dev)
+    targets = targets.to(dev)
+    if origins is None:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        origins = _sample_origins(generator, swarm.alive, targets.shape[0])
+    else:
+        origins = origins.to(dev)
+    st = lookup_init(swarm, cfg, targets, origins)
+    return dev, init_lifecycle(st) if track_lifecycle else st
+
+
+def _lifecycle_stats(st: LookupState, order, stats, track: bool) -> None:
+    """The per-row lifecycle rounds into ``stats``, in batch order."""
+    if track and stats is not None:
+        back = (lambda x: x) if order is None else (  # noqa: E731
+            lambda x: _scatter_rows(x, order))
+        stats["admitted_round"] = back(st.admitted_round)
+        stats["completed_round"] = back(st.completed_round)
+
+
 def lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
            generator: torch.Generator | None = None, *,
            origins: torch.Tensor | None = None, compact: bool = True,
-           stats: dict | None = None, device=None) -> LookupResult:
+           stats: dict | None = None, track_lifecycle: bool = False,
+           device=None) -> LookupResult:
     """Run a batch of iterative lookups to completion.
 
     ``targets [L,5]`` int64.  Each lookup starts from ``origins [L]``
@@ -523,27 +758,61 @@ def lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
     (seeded 0 if omitted).  ``compact`` (default) repacks pending rows
     to the front after each burst and runs later rounds on a shrinking
     power-of-two prefix — bit-identical results.  ``stats`` receives
-    the loop's dispatch counts."""
-    dev = resolve_device(device)
-    _require_on(swarm, dev)
-    targets = targets.to(dev)
-    l = targets.shape[0]
-    if origins is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        origins = _sample_origins(generator, swarm.alive, l)
-    else:
-        origins = origins.to(dev)
-    st = lookup_init(swarm, cfg, targets, origins)
+    the loop's dispatch counts and, with ``track_lifecycle`` (the
+    lifecycle plane, a pure observer), the per-row ``admitted_round``
+    and ``completed_round`` in batch order."""
+    dev, st = _start(swarm, cfg, targets, generator, origins,
+                     track_lifecycle, device)
     if not compact:
-        st = run_burst_loop(lambda s: lookup_step(swarm, cfg, s), st, cfg)
+        st = run_burst_loop(
+            lambda s, r: lookup_step(swarm, cfg, s, rnd=r), st, cfg)
+        _lifecycle_stats(st, None, stats, track_lifecycle)
         return LookupResult(found=_finalize(swarm.ids, st, cfg),
                             hops=st.hops, done=st.done)
-    st, order = run_compacted_burst_loop(
-        lambda s, mw: lookup_step(swarm, cfg, s, merge_w=mw), st, cfg,
-        stats=stats, width_ladder=resolve_merge_impl(cfg, dev) == "rank")
+    st, _, order = run_compacted_burst_loop(
+        lambda s, ex, r, hidden, mw: (
+            lookup_step(swarm, cfg, s, merge_w=mw, rnd=r), ex),
+        st, cfg, stats=stats,
+        width_ladder=resolve_merge_impl(cfg, dev) == "rank")
+    _lifecycle_stats(st, order, stats, track_lifecycle)
     found, hops, done = _finalize_scattered(swarm.ids, st, order, cfg)
     return LookupResult(found=found, hops=hops, done=done)
+
+
+def traced_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
+                  generator: torch.Generator | None = None, *,
+                  origins: torch.Tensor | None = None, compact: bool = True,
+                  stats: dict | None = None, track_lifecycle: bool = False,
+                  device=None) -> tuple[LookupResult, LookupTrace]:
+    """:func:`lookup` with the flight recorder on: the same origins, the
+    same rounds and results (the counters are pure observers), plus the
+    :class:`LookupTrace`.  Capture adds no host sync: the counters stay
+    on the device until :func:`trace_to_dict`.  Compaction hides
+    finished rows from later dispatches; they fold into the done gauge
+    through ``done_base``, so a compacted run records the same trace as
+    an uncompacted one."""
+    dev, st = _start(swarm, cfg, targets, generator, origins,
+                     track_lifecycle, device)
+    trace = empty_lookup_trace(cfg, dev)
+    if not compact:
+        st, trace = run_burst_loop(
+            lambda c, r: traced_lookup_step(swarm, cfg, c[0], c[1], r),
+            (st, trace), cfg, done_of=lambda c: c[0].done)
+        _lifecycle_stats(st, None, stats, track_lifecycle)
+        return (LookupResult(found=_finalize(swarm.ids, st, cfg),
+                             hops=st.hops, done=st.done), trace)
+
+    def step(s, ex, r, hidden, mw):
+        s, tr = traced_lookup_step(swarm, cfg, s, ex[0], r, hidden,
+                                   merge_w=mw)
+        return s, (tr,)
+
+    st, (trace,), order = run_compacted_burst_loop(
+        step, st, cfg, extras=(trace,), stats=stats,
+        width_ladder=resolve_merge_impl(cfg, dev) == "rank")
+    _lifecycle_stats(st, order, stats, track_lifecycle)
+    found, hops, done = _finalize_scattered(swarm.ids, st, order, cfg)
+    return LookupResult(found=found, hops=hops, done=done), trace
 
 
 # ---------------------------------------------------------------------------
@@ -557,20 +826,21 @@ def burst_schedule(cfg: SwarmConfig) -> int:
                max(6, math.ceil(math.log2(max(2, cfg.n_nodes)) / 2.65)))
 
 
-def run_burst_loop(step_fn, state: LookupState,
-                   cfg: SwarmConfig) -> LookupState:
+def run_burst_loop(step_fn, state, cfg: SwarmConfig,
+                   done_of=lambda s: s.done):
     """Dispatch ``burst_schedule`` rounds back to back, then check
     done-ness with one readback, topping up 2 rounds at a time.  Done
     lookups are frozen inside the step, so overshoot never changes a
-    result.  ``step_fn(state)`` advances one round."""
+    result.  ``step_fn(state, rnd)`` advances an opaque carry one round;
+    ``done_of`` gives its ``[L]`` done mask."""
     burst = burst_schedule(cfg)
     rounds = 0
     while rounds < cfg.max_steps:
         n = min(burst, cfg.max_steps - rounds)
         for _ in range(n):
-            state = step_fn(state)
+            state = step_fn(state, rounds)
             rounds += 1
-        if bool(state.done.all()):          # the one readback per burst
+        if bool(done_of(state).all()):      # the one readback per burst
             break
         burst = 2
     return state
@@ -591,18 +861,21 @@ def _stable_done_perm(done: torch.Tensor) -> torch.Tensor:
     return torch.argsort(done.to(torch.uint8), stable=True)
 
 
+# The per-field helpers skip the lifecycle fields when they are None.
+
 def _permute_state(st: LookupState, perm: torch.Tensor) -> LookupState:
-    return LookupState(*[x[perm] for x in st])
+    return LookupState(*[x if x is None else x[perm] for x in st])
 
 
 def _prefix(st: LookupState, w: int) -> LookupState:
-    return LookupState(*[x[:w] for x in st])
+    return LookupState(*[x if x is None else x[:w] for x in st])
 
 
 def _writeback_prefix(full: LookupState, sub: LookupState) -> LookupState:
     """``full`` with its first rows replaced by the advanced ``sub``."""
     wo = sub.done.shape[0]
-    return LookupState(*[torch.cat([s, f[wo:]]) for f, s in zip(full, sub)])
+    return LookupState(*[f if f is None else torch.cat([s, f[wo:]])
+                         for f, s in zip(full, sub)])
 
 
 def _pending_and_wneed(st: LookupState, cfg: SwarmConfig):
@@ -627,15 +900,18 @@ def _scatter_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 
 def run_compacted_burst_loop(step_fn, st: LookupState, cfg: SwarmConfig,
-                             stats: dict | None = None,
+                             extras=(), stats: dict | None = None,
                              width_ladder: bool = False):
     """:func:`run_burst_loop` with active-set compaction: after each
     burst, pending rows are stably repacked to the front and the next
     rounds run on a power-of-two prefix covering them.  With
     ``width_ladder`` (the plain rank merge), the same readback's
-    watermark picks the merge's response width.  ``step_fn(st,
-    merge_w)`` advances one round.  Returns ``(full_state, order)``,
-    ``order[i]`` being row ``i``'s original position."""
+    watermark picks the merge's response width.  ``step_fn(st, extras,
+    rnd, hidden, merge_w)`` advances one round and returns ``(st,
+    extras)``: ``hidden`` counts the finished rows outside the
+    dispatched prefix, ``extras`` (a trace) rides the loop uncompacted.
+    Returns ``(full_state, extras, order)``, ``order[i]`` being row
+    ``i``'s original position."""
     l = st.done.shape[0]
     order = torch.arange(l, dtype=torch.int64, device=st.done.device)
     full, sub, w = st, st, l
@@ -649,7 +925,7 @@ def run_compacted_burst_loop(step_fn, st: LookupState, cfg: SwarmConfig,
     while rounds < cfg.max_steps:
         n = min(burst, cfg.max_steps - rounds)
         for _ in range(n):
-            sub = step_fn(sub, merge_w)
+            sub, extras = step_fn(sub, extras, rounds, l - w, merge_w)
             rounds += 1
         if w not in widths:
             widths.append(w)
@@ -671,7 +947,7 @@ def run_compacted_burst_loop(step_fn, st: LookupState, cfg: SwarmConfig,
     if stats is not None:
         stats["rounds_dispatched"] = rounds
         stats["widths"] = widths
-    return full, order
+    return full, extras, order
 
 
 # ---------------------------------------------------------------------------
@@ -711,6 +987,17 @@ def true_closest(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
     _require_on(swarm, dev)
     return closest_nodes_batched(swarm.ids, targets.to(dev), k,
                                  valid=swarm.alive)
+
+
+def key_owners(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor, *,
+               device=None) -> torch.Tensor:
+    """The node each key belongs to: the XOR-nearest id of the whole
+    swarm (alive or not) per target, ``[L]`` int32 — the K3′ kernel
+    (K3 at k=1) on the card, its plain version on the CPU.  On a healthy
+    swarm a lookup that found it reports it first."""
+    dev = resolve_device(device)
+    _require_on(swarm, dev)
+    return kernels.nearest_ids(swarm.ids, targets.to(dev).contiguous())
 
 
 def lookup_recall(swarm: Swarm, cfg: SwarmConfig, result: LookupResult,

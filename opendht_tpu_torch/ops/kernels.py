@@ -1,12 +1,17 @@
-"""The lookup engine's two hand-written CUDA kernels, their wrappers and
+"""The lookup engine's hand-written CUDA kernels, their wrappers and
 their plain PyTorch versions.
 
 * K1 :func:`merge_round` (``csrc/merge_round.cu``) replaces
   ``merge_round_pallas`` (``opendht_tpu/ops/pallas_kernels.py``): the
   per-round dedup + rank merge + quorum/exhaustion check.
+* K2 :func:`fused_round` (``csrc/fused_round.cu``) replaces
+  ``fused_round_pallas``: a whole round — window gather, member decode,
+  queried/evict update and K1's merge — in one kernel.  K1 and K2 share
+  the merge tail ``csrc/merge_core.cuh``.
 * K3 :func:`nearest_k_ids` (``csrc/nearest_k.cu``) replaces the
   streaming k-best Pallas kernel of the same name: the exact k
-  XOR-nearest valid rows per target, the recall ground truth.
+  XOR-nearest valid rows per target, the recall ground truth; K3′
+  :func:`nearest_ids` (``nearest_ids`` there) is its k=1 call, clipped.
 
 A wrapper given CPU tensors runs the plain version (``*_plain``), which
 the tests hold against the JAX package.  Given CUDA tensors it launches
@@ -17,7 +22,9 @@ The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 plain C-interface shared libraries under ``opendht_tpu_torch/build/``
 (one ``nvcc`` per source, all started together) and bound with
 ``ctypes``; each C entry point launches on the caller's stream and
-returns ``cudaGetLastError()``.
+returns ``cudaGetLastError()``.  A library is named after a hash of its
+source and every ``csrc/*.cuh`` header, so an edited source or header
+never loads a stale library.
 """
 
 from __future__ import annotations
@@ -31,21 +38,27 @@ from pathlib import Path
 
 import torch
 
+from .round_parts import (fold_solicitations, gather_pair_windows,
+                          unpack_pair_window)
 from .u32 import lexsort
 from .xor_metric import N_LIMBS, rank_merge_round_d0
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = {"merge_round": "merge_round.cu", "nearest_k": "nearest_k.cu"}
+SOURCES = {"merge_round": "merge_round.cu", "fused_round": "fused_round.cu",
+           "nearest_k": "nearest_k.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES = {"merge_round": 0, "nearest_k_ids": 0}
+LAUNCHES = {"merge_round": 0, "fused_round": 0, "nearest_k_ids": 0,
+            "nearest_ids": 0}
 
-# K1 takes rows of at most this many entries (S + C).
+# K1 and K2 take rows of at most this many entries (S + C).
 MERGE_MAX_W = 1024
+# K2 loads a row's solicitations one per lane of its warp.
+FUSED_MAX_ALPHA = 32
 # K3 supports k up to this (a private sorted list per thread, in registers).
 NEAREST_MAX_K = 16
 # Must match kTargetsPerBlock and kTile in csrc/nearest_k.cu.
@@ -69,11 +82,21 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def source_digest(src: str) -> str:
+    """Hash of the source ``csrc/<src>`` and of every ``csrc/*.cuh``
+    header (names and bytes): the key a library is built under."""
+    h = hashlib.sha1()
+    for path in [CSRC / src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:12]
+
+
 def build_kernels() -> float:
     """Compile (if needed) and load every kernel library; returns the
     wall seconds spent.  Each source builds into
-    ``build/<name>-<content hash>.so``, written under a temporary name
-    and renamed, so an edited source never loads a stale library."""
+    ``build/<name>-<source_digest>.so``, written under a temporary name
+    and renamed, so an edited source or header never loads a stale
+    library."""
     t0 = time.perf_counter()
     pending = {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -81,7 +104,7 @@ def build_kernels() -> float:
         if name in _libs:
             continue
         path = CSRC / src
-        digest = hashlib.sha1(path.read_bytes()).hexdigest()[:12]
+        digest = source_digest(src)
         so = BUILD_DIR / f"{name}-{digest}.so"
         if so.exists():
             pending[name] = (so, None)
@@ -112,6 +135,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "merge_round":
         fn = lib.merge_round_launch
         fn.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p]
+    elif name == "fused_round":
+        fn = lib.fused_round_launch
+        fn.argtypes = [p, ll, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
+                       ll, i, i, i, i, i, i, p]
     else:
         fn = lib.nearest_k_launch
         fn.argtypes = [p, p, p, ll, ll, i, ll, ll, p, p, p]
@@ -213,6 +240,110 @@ def merge_round(fr_idx: torch.Tensor, fr_d0: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K2: the whole round
+# ---------------------------------------------------------------------------
+
+def fused_round_plain(tables, targets0, fr_idx, fr_d0, fr_q, safe_sel,
+                      sel_d0, sel_pos, w0, q_hit, e_hit, *, bucket_k: int,
+                      quorum: int, keep: int):
+    """Plain version of K2, from the engine's own pieces: the bucket-pair
+    window gather (window 0 where ``w0`` lies outside ``[1, b_total-2]``,
+    the Pallas select chain's fall-through, while the decode keeps the
+    raw ``w0``), the member decode, the queried/evict fold and K1's
+    plain version.  ``b_total`` comes from the padded row width."""
+    n, row_w = tables.shape
+    l, a = safe_sel.shape
+    k = bucket_k
+    b_total = row_w // (3 * k)
+    rows = safe_sel.to(torch.int64).clamp(0, n - 1)
+    w0 = w0.to(torch.int64)
+    start = torch.where((w0 >= 1) & (w0 <= b_total - 2), w0, 0)
+    win = gather_pair_windows(tables, rows, start, k)           # [L,A,6K]
+    idx, d0 = unpack_pair_window(win.view(l, a, 2, 3 * k), w0, targets0,
+                                 sel_d0, q_hit, k)
+    f_idx, f_d0, f_q = fold_solicitations(fr_idx, fr_d0, fr_q, sel_pos,
+                                          q_hit, e_hit)
+    return merge_round_plain(f_idx, f_d0, f_q, idx.reshape(l, -1),
+                             d0.reshape(l, -1), quorum=quorum, keep=keep)
+
+
+def fused_round(tables: torch.Tensor, targets0: torch.Tensor,
+                fr_idx: torch.Tensor, fr_d0: torch.Tensor,
+                fr_q: torch.Tensor, safe_sel: torch.Tensor,
+                sel_d0: torch.Tensor, sel_pos: torch.Tensor,
+                w0: torch.Tensor, q_hit: torch.Tensor, e_hit: torch.Tensor,
+                *, bucket_k: int, quorum: int, keep: int):
+    """One whole lookup round (``fused_round_pallas``'s arguments):
+    ``tables [N,row_w]`` uint16 augmented rows, ``targets0 [L]`` int64
+    (the targets' first limbs), the frontier ``fr_idx/fr_d0/fr_q [L,S]``
+    (int32, int64, bool) and the prelude ``[L,A]``: ``safe_sel`` int32
+    (solicited rows, clipped to ``[0, N-1]``), ``sel_d0`` int64,
+    ``sel_pos`` int32 (-1 = no slot), ``w0`` int32 (bucket-pair start),
+    ``q_hit``/``e_hit`` bool.  Returns ``(idx, d0, queried, done)`` as
+    :func:`merge_round` does, at ``out_w = min(keep, S + 2·K·A)``."""
+    if tables.device.type == "cpu":
+        return fused_round_plain(
+            tables, targets0, fr_idx, fr_d0, fr_q, safe_sel, sel_d0,
+            sel_pos, w0, q_hit, e_hit, bucket_k=bucket_k, quorum=quorum,
+            keep=keep)
+    if tables.device.type != "cuda":
+        raise ValueError(f"fused_round: unsupported device {tables.device}")
+    dev = tables.device
+    if tables.dim() != 2:
+        raise ValueError("tables must be [N, row_w]")
+    n, row_w = tables.shape
+    l, s = fr_idx.shape
+    a = safe_sel.shape[1] if safe_sel.dim() == 2 else -1
+    k = bucket_k
+    _check(tables, "tables", torch.uint16, (n, row_w), dev)
+    _check(targets0, "targets0", torch.int64, (l,), dev)
+    _check(fr_idx, "fr_idx", torch.int32, (l, s), dev)
+    _check(fr_d0, "fr_d0", torch.int64, (l, s), dev)
+    _check(fr_q, "fr_q", torch.bool, (l, s), dev)
+    _check(safe_sel, "safe_sel", torch.int32, (l, a), dev)
+    _check(sel_d0, "sel_d0", torch.int64, (l, a), dev)
+    _check(sel_pos, "sel_pos", torch.int32, (l, a), dev)
+    _check(w0, "w0", torch.int32, (l, a), dev)
+    _check(q_hit, "q_hit", torch.bool, (l, a), dev)
+    _check(e_hit, "e_hit", torch.bool, (l, a), dev)
+    if not 1 <= a <= FUSED_MAX_ALPHA:
+        raise ValueError(f"fused_round kernel takes 1 <= A <= "
+                         f"{FUSED_MAX_ALPHA}, got {a}")
+    if k < 1 or row_w // (3 * k) < 2 or n < 1:
+        raise ValueError("fused_round needs K >= 1, a row of at least two "
+                         "buckets and at least one node")
+    c = 2 * k * a
+    if not 0 < s + c <= MERGE_MAX_W:
+        raise ValueError(f"fused_round kernel takes 0 < S+2KA <= "
+                         f"{MERGE_MAX_W}, got {s + c}")
+    if keep < 1 or quorum < 1:
+        raise ValueError("fused_round needs keep >= 1 and quorum >= 1")
+    out_w = min(keep, s + c)
+    o_idx = torch.empty((l, out_w), dtype=torch.int32, device=dev)
+    o_d0 = torch.empty((l, out_w), dtype=torch.int64, device=dev)
+    o_q = torch.empty((l, out_w), dtype=torch.bool, device=dev)
+    done = torch.empty((l,), dtype=torch.bool, device=dev)
+    if l == 0:
+        return o_idx, o_d0, o_q, done
+    # 16-byte window loads when every window start is 16-byte aligned.
+    vec = int(k % 8 == 0 and row_w % 8 == 0 and tables.data_ptr() % 16 == 0)
+    lib = _lib("fused_round")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fused_round_launch(
+            tables.data_ptr(), n, row_w, targets0.data_ptr(),
+            fr_idx.data_ptr(), fr_d0.data_ptr(), fr_q.data_ptr(),
+            safe_sel.data_ptr(), sel_d0.data_ptr(), sel_pos.data_ptr(),
+            w0.data_ptr(), q_hit.data_ptr(), e_hit.data_ptr(),
+            o_idx.data_ptr(), o_d0.data_ptr(), o_q.data_ptr(),
+            done.data_ptr(), l, s, a, k, out_w, min(quorum, out_w), vec,
+            stream)
+    _raise_on(rc, "fused_round")
+    LAUNCHES["fused_round"] += 1
+    return o_idx, o_d0, o_q, done
+
+
+# ---------------------------------------------------------------------------
 # K3: exact k-nearest
 # ---------------------------------------------------------------------------
 
@@ -266,8 +397,32 @@ def nearest_k_ids(ids: torch.Tensor, targets: torch.Tensor, k: int = 8, *,
     ``-1`` where fewer than ``k`` valid rows exist."""
     if ids.device.type == "cpu":
         return nearest_k_ids_plain(ids, targets, k, valid=valid)
+    return _nearest_k_launch(ids, targets, k, valid, "nearest_k_ids")
+
+
+def nearest_ids_plain(ids: torch.Tensor, targets: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain version of K3′: the k=1 plain K3, clipped to ``[0, N-1]``."""
+    res = nearest_k_ids_plain(ids, targets, 1)
+    return res[:, 0].clamp(0, max(ids.shape[0] - 1, 0))
+
+
+def nearest_ids(ids: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Index of the exact XOR-nearest row of ``ids [N,5]`` per target
+    ``[L,5]`` → ``[L]`` int32: the K3 kernel at k=1, clipped to
+    ``[0, N-1]`` (``nearest_ids`` of the Pallas kernels)."""
+    if ids.device.type == "cpu":
+        return nearest_ids_plain(ids, targets)
+    out = _nearest_k_launch(ids, targets, 1, None, "nearest_ids")
+    return out[:, 0].clamp(0, max(ids.shape[0] - 1, 0))
+
+
+def _nearest_k_launch(ids: torch.Tensor, targets: torch.Tensor, k: int,
+                      valid: torch.Tensor | None, name: str) -> torch.Tensor:
+    """Check the arguments and launch the K3 kernel on CUDA tensors,
+    counting the launch under ``LAUNCHES[name]``."""
     if ids.device.type != "cuda":
-        raise ValueError(f"nearest_k_ids: unsupported device {ids.device}")
+        raise ValueError(f"{name}: unsupported device {ids.device}")
     dev = ids.device
     n, l = ids.shape[0], targets.shape[0]
     _check(ids, "ids", torch.int64, (n, N_LIMBS), dev)
@@ -295,8 +450,8 @@ def nearest_k_ids(ids: torch.Tensor, targets: torch.Tensor, k: int = 8, *,
             ids.data_ptr(), targets.data_ptr(),
             None if valid is None else valid.data_ptr(), n, l, k, chunk,
             n_chunks, part.data_ptr(), out.data_ptr(), stream)
-    _raise_on(rc, "nearest_k_ids")
-    LAUNCHES["nearest_k_ids"] += 1
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 

@@ -1,6 +1,8 @@
 """K1 (round merge) and K3 (exact k-nearest): the plain versions against
 the JAX Pallas kernels (interpret mode) and brute force, bit for bit;
-the CUDA kernels against the plain versions on the card.
+the CUDA kernels — K1, K2 (the fused round), K3 and K3′ — against the
+plain versions on the card.  (K2's and K3′'s plain versions are held
+against JAX in ``test_torch_fused_round.py``.)
 
 JAX is imported inside the tests that compare with it, so the card-only
 tests (marker ``cuda``) also run where JAX is not installed:
@@ -14,8 +16,9 @@ import torch
 
 from opendht_tpu_torch.ops import kernels
 
-from torch_port_cases import (C, L, MAXU, S, adversarial_responses,
-                              assert_same, make_frontier, to_torch)
+from torch_port_cases import (C, FK, FUSED_CASES, L, MAXU, S,
+                              adversarial_responses, assert_same, fused_case,
+                              make_frontier, to_torch)
 
 QUORUM = 8
 
@@ -154,9 +157,33 @@ def test_cpu_wrappers_count_no_launch():
     kernels.reset_launches()
     case = _merge_case("adversarial")
     kernels.merge_round(*(to_torch(x) for x in case), quorum=QUORUM, keep=S)
+    kernels.fused_round(*(to_torch(x) for x in fused_case("round", 0)),
+                        bucket_k=FK, quorum=QUORUM, keep=S)
     ids, tg, _, _ = _nearest_case("k1")
     kernels.nearest_k_ids(to_torch(ids), to_torch(tg), 8)
-    assert kernels.LAUNCHES == {"merge_round": 0, "nearest_k_ids": 0}
+    kernels.nearest_ids(to_torch(ids), to_torch(tg))
+    assert kernels.LAUNCHES == {"merge_round": 0, "fused_round": 0,
+                                "nearest_k_ids": 0, "nearest_ids": 0}
+
+
+def test_library_names_cover_the_shared_header(tmp_path, monkeypatch):
+    """Each library is named after its source and every ``.cuh`` header:
+    editing the merge core K1 and K2 share renames both libraries."""
+    for f in kernels.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = {n: kernels.source_digest(src)
+              for n, src in kernels.SOURCES.items()}
+    core = tmp_path / "merge_core.cuh"
+    core.write_text(core.read_text() + "\n// edited\n")
+    after = {n: kernels.source_digest(src)
+             for n, src in kernels.SOURCES.items()}
+    assert after["merge_round"] != before["merge_round"]
+    assert after["fused_round"] != before["fused_round"]
+    assert '#include "merge_core.cuh"' in (
+        tmp_path / "merge_round.cu").read_text()
+    assert '#include "merge_core.cuh"' in (
+        tmp_path / "fused_round.cu").read_text()
 
 
 def _need_card():
@@ -196,8 +223,60 @@ def test_nearest_k_kernel_matches_plain(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,seed,keep", FUSED_CASES)
+def test_fused_round_kernel_matches_plain(name, seed, keep):
+    dev = _need_card()
+    case = fused_case(name, seed)
+    want = kernels.fused_round(*(to_torch(x) for x in case), bucket_k=FK,
+                               quorum=QUORUM, keep=keep)
+    before = kernels.LAUNCHES["fused_round"]
+    got = kernels.fused_round(*(to_torch(x, dev) for x in case), bucket_k=FK,
+                              quorum=QUORUM, keep=keep)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_round"] == before + 1
+    assert_same(want, got, f"K2 kernel {name}")
+
+
+@pytest.mark.cuda
+def test_fused_round_kernel_64bit_offsets():
+    """Solicited rows whose table offsets pass 2^31 elements (a
+    [2^23 + 4096, 256] u16 table, 4.3 GB): the kernel addresses them in
+    64 bits."""
+    dev = _need_card()
+    case = [to_torch(x, dev) for x in fused_case("round", 0)]
+    n = (1 << 23) + 4096
+    tables = torch.full((n, case[0].shape[1]), 0xFFFF, dtype=torch.uint16,
+                        device=dev)
+    tables[-case[0].shape[0]:] = case[0]            # the case's rows, last
+    case[0] = tables
+    case[5] = case[5] + (n - 512)                   # solicit those rows
+    got = kernels.fused_round(*case, bucket_k=FK, quorum=QUORUM, keep=S)
+    want = kernels.fused_round(*(to_torch(x) for x in fused_case("round", 0)),
+                               bucket_k=FK, quorum=QUORUM, keep=S)
+    torch.cuda.synchronize()
+    assert_same(want, got, "K2 past 2^31 elements")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NEAREST_CASES)
+def test_nearest_ids_kernel_matches_plain(name):
+    dev = _need_card()
+    ids, tg, _, _ = _nearest_case(name)
+    want = kernels.nearest_ids(to_torch(ids), to_torch(tg))
+    before = kernels.LAUNCHES["nearest_ids"]
+    got = kernels.nearest_ids(to_torch(ids, dev), to_torch(tg, dev))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["nearest_ids"] == before + 1
+    assert torch.equal(want, got.cpu())
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_input():
     dev = _need_card()
     fi = torch.zeros((4, S), dtype=torch.int64, device=dev)    # not int32
     with pytest.raises(TypeError):
         kernels.merge_round(fi, fi, fi.bool(), fi, fi, quorum=8, keep=S)
+    case = [to_torch(x, dev) for x in fused_case("round", 0)]
+    case[7] = case[7].to(torch.int64)                          # sel_pos
+    with pytest.raises(TypeError, match="sel_pos"):
+        kernels.fused_round(*case, bucket_k=FK, quorum=QUORUM, keep=S)
