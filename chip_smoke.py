@@ -19,8 +19,10 @@ Phases (any failure exits non-zero and prints no result line):
    14, W and W+5; K2 (the fused round) on 16,384 adversarial rows of a
    churned 65,536-node swarm at keep 14, 3 and W, with α = 4 (W = 78,
    16-lane groups) and α = 7 (W = 126, a warp a row); K3 (exact
-   k-nearest) at 1M nodes x 256 targets, K3′ (its k=1 call) at the same
-   size;
+   k-nearest, k = 8, masked and not) and K3′ (its k=1 call) on 1M ids
+   in a random row order and sorted, at 256 targets (one target group)
+   and 2,048 (several), the sorted ids' answers mapped back to the
+   random order's;
 4. whole path, card vs CPU: a 4,096-node swarm, 256 lookups from fixed
    origins, healthy, churned and with plain tables, the fused-round
    engine healthy and churned — found/hops/done bit-equal — then
@@ -41,15 +43,17 @@ Phases (any failure exits non-zero and prints no result line):
    more at that shape; K1 and K2 again on round 5's inputs (after four
    full-width ``lookup_step``s) and K2 with ``q_hit`` all false (no
    window read: the difference is the window reads' cost) — the
-   ``kernel_times`` line;
+   ``kernel_times`` line; K3 and K3′ again on the same ids in a random
+   row order (the same nodes), K3 once at 10M x 8,192, and each of K3's
+   four launches timed by the profiler — the ``k3_times`` line;
 7. one more lookup of each engine under ``torch.profiler``: device time
    by kernel name and the device's busy share; then each layer of a
    lookup (origin sampling, init, one round's inputs, its merge, the
    fused prelude, K2, finalize) timed alone with CUDA events.
 
 Prints the ``ptxas`` lines of every kernel (registers, shared memory,
-spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal`` and
-``kernel_times`` lines, a ``kernels`` JSON line, the card line, and last
+spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
+``kernel_times`` and ``k3_times`` lines, a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -57,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +71,7 @@ N_NODES = 10_000_000
 N_LOOKUPS = 1 << 20
 N_RECALL = 512
 TIMED_RUNS = 2
+K3_CHECK_NODES = 1 << 20    # phase 3's K3 / K3′ checks
 
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds: HBM
 # bandwidth, and the float32 rate outside the tensor cores as the rate
@@ -96,6 +102,24 @@ def max_abs_err(a, b) -> int:
         d = (x.to(torch.int64).cpu() - y.to(torch.int64).cpu()).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
+
+
+def plain_nearest_k(ids, tg, k: int, valid, rows: int = 512):
+    """K3's plain version in ``rows``-target slices (to bound its
+    ``[rows, chunk, 5]`` planes)."""
+    import torch
+    from opendht_tpu_torch.ops import kernels
+    return torch.cat([kernels.nearest_k_ids_plain(ids, tg[i:i + rows], k,
+                                                  valid=valid)
+                      for i in range(0, tg.shape[0], rows)])
+
+
+def to_rows(idx, perm):
+    """Row indices of a permuted copy (``ids[perm]``) as rows of the
+    original; ``-1`` stays."""
+    import torch
+    return torch.where(idx >= 0, perm[idx.clamp(min=0).long()],
+                       -1).to(idx.dtype)
 
 
 def time_cuda(fn, reps: int, warmup: int = 1) -> float:
@@ -216,6 +240,7 @@ def fused_inputs(n_rows: int, gen, dev, alpha: int = 4):
 def phase_kernels_vs_plain(dev, failures) -> None:
     import torch
     from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.ops.u32 import lexsort
 
     gen = torch.Generator(device=dev).manual_seed(11)
     args = merge_inputs(16_384, gen, dev)
@@ -247,30 +272,50 @@ def phase_kernels_vs_plain(dev, failures) -> None:
                 failures.append(f"K1 W={w} keep={keep} disagrees "
                                 f"(err {err})")
 
-    n, l = 1 << 20, 256
+    # K3 and K3′ on 1M random ids, in a random row order and sorted as
+    # build_swarm sorts them, at 256 targets (one target group) and
+    # 2,048 (several): bit-equal to the plain version, and the answers
+    # on the random order map back to those on the sorted one.
+    n = K3_CHECK_NODES
     ids = torch.randint(0, 2**32, (n, 5), generator=gen, device=dev)
-    tg = torch.randint(0, 2**32, (l, 5), generator=gen, device=dev)
-    tg[:32] = ids[:32]                       # a node is nearest itself
-    tg[32:64, 0] |= 0xFFF00000               # leading one bits
+    perm = lexsort([ids[:, i] for i in range(5)], dim=0)
+    orders = {"shuffled": ids, "sorted": ids[perm].contiguous()}
     valid = torch.rand((n,), generator=gen, device=dev) >= 0.25
-    for v in (valid, None):
-        got = kernels.nearest_k_ids(ids, tg, 8, valid=v)
-        want = kernels.nearest_k_ids_plain(ids, tg, 8, valid=v)
-        torch.cuda.synchronize()
-        err = max_abs_err([got], [want])
-        log(f"K3 nearest_k_ids vs plain, {n} nodes x {l} targets, "
-            f"mask={'yes' if v is not None else 'no'}: max_abs_err={err} "
-            f"(tolerance 0)")
-        if err:
-            failures.append(f"K3 disagrees (err {err})")
-    got = kernels.nearest_ids(ids, tg)
-    want = kernels.nearest_ids_plain(ids, tg)
-    torch.cuda.synchronize()
-    err = max_abs_err([got], [want])
-    log(f"K3' nearest_ids vs plain, {n} nodes x {l} targets: "
-        f"max_abs_err={err} (tolerance 0)")
-    if err:
-        failures.append(f"K3' disagrees (err {err})")
+    masks = {"shuffled": valid, "sorted": valid[perm].contiguous()}
+    for l in (256, 2048):
+        tg = torch.randint(0, 2**32, (l, 5), generator=gen, device=dev)
+        tg[:32] = ids[:32]                   # a node is nearest itself
+        tg[32:64, 0] |= 0xFFF00000           # leading one bits
+        answers = {}
+        for order, o_ids in orders.items():
+            for masked in (True, False):
+                v = masks[order] if masked else None
+                got = kernels.nearest_k_ids(o_ids, tg, 8, valid=v)
+                want = plain_nearest_k(o_ids, tg, 8, v)
+                torch.cuda.synchronize()
+                err = max_abs_err([got], [want])
+                answers[order, masked] = got
+                log(f"K3 nearest_k_ids vs plain, {n} nodes x {l} targets, "
+                    f"{order} ids, mask={'yes' if masked else 'no'}: "
+                    f"max_abs_err={err} (tolerance 0)")
+                if err:
+                    failures.append(f"K3 {order} L={l} disagrees (err {err})")
+            got = kernels.nearest_ids(o_ids, tg)
+            want = plain_nearest_k(o_ids, tg, 1, None)[:, 0]
+            torch.cuda.synchronize()
+            err = max_abs_err([got], [want])
+            answers[order, "k1"] = got
+            log(f"K3' nearest_ids vs plain, {n} nodes x {l} targets, "
+                f"{order} ids: max_abs_err={err} (tolerance 0)")
+            if err:
+                failures.append(f"K3' {order} L={l} disagrees (err {err})")
+        for key in ((True,), (False,), ("k1",)):
+            back = to_rows(answers[("sorted", *key)], perm)
+            if not torch.equal(back, answers[("shuffled", *key)]):
+                failures.append(f"K3 {key[0]} at L={l}: the sorted ids' "
+                                f"answer does not map back")
+        log(f"K3/K3' at L={l}: the sorted ids' answers map back to the "
+            f"shuffled ones")
 
     # α = 4 gives W = 78 (16-lane row groups), α = 7 W = 126 (a warp).
     for alpha in (4, 7):
@@ -520,52 +565,80 @@ def phase_kernel_times(swarm, cfg, targets, gen, launches, launches_f,
     del m_args, m_later, f_later, f_nowin
 
     tg = targets[:N_RECALL].contiguous()
+    alive_n = int(swarm.alive.sum())
 
-    def k3(ids=swarm.ids, alive=swarm.alive):
-        return kernels.nearest_k_ids(ids, tg, 8, valid=alive)
+    def k3(ids=swarm.ids, alive=swarm.alive, t=tg):
+        return kernels.nearest_k_ids(ids, t, 8, valid=alive)
 
-    k3_ms = time_cuda(k3, reps=5)
+    k3_ms = time_cuda(k3, reps=10, warmup=2)
     t0 = time.perf_counter()
     k3_want = kernels.nearest_k_ids_plain(swarm.ids, tg, 8,
                                           valid=swarm.alive)
     torch.cuda.synchronize()
     k3_plain_ms = (time.perf_counter() - t0) * 1e3
     k3_err = max_abs_err([k3()], [k3_want])
+    # An exact scan needs the XOR and the compare of the first limb for
+    # every (target, valid node) pair: two 32-bit operations.
     k3_bytes = nbytes(swarm.ids, swarm.alive, tg) + N_RECALL * 8 * 4
-    k3_bound, k3_by = bound(k3_bytes, n * N_RECALL)
+    k3_bound, k3_by = bound(k3_bytes, 2 * alive_n * N_RECALL)
+    k3_parts = launch_times(k3, "nearest_k_")
     log(f"K3 at N={n} x L={N_RECALL}: kernel {k3_ms:.4f} ms, plain "
         f"{k3_plain_ms:.1f} ms, bound {k3_bound:.4f} ms ({k3_by}), "
-        f"max_abs_err={k3_err}")
+        f"max_abs_err={k3_err}; by launch {json.dumps(k3_parts)}")
     # The swarm's ids are sorted; the same ids in a random row order
-    # show how much the scan order costs the per-thread lists.
+    # must cost the scan about the same and give the same nodes.
     perm = torch.randperm(n, generator=gen, device=dev)
     ids_r, alive_r = swarm.ids[perm], swarm.alive[perm]
-    k3r_ms = time_cuda(lambda: k3(ids_r, alive_r), reps=5)
-    got_r = k3(ids_r, alive_r)
-    got_r = torch.where(got_r >= 0, perm[got_r.clamp(min=0).long()], -1)
-    k3r_same = torch.equal(got_r.to(torch.int32), k3_want)
-    log(f"K3 on the same ids in a random row order: {k3r_ms:.4f} ms, "
-        f"same nodes {k3r_same}")
+    k3r_ms = time_cuda(lambda: k3(ids_r, alive_r), reps=10, warmup=2)
+    k3r_same = torch.equal(to_rows(k3(ids_r, alive_r), perm), k3_want)
+    log(f"K3 on the same ids in a random row order: {k3r_ms:.4f} ms "
+        f"({k3r_ms / k3_ms:.3f} x sorted), same nodes {k3r_same}")
     if not k3r_same:
         failures.append("K3 on shuffled ids found other nodes")
+    # Sixteen times the targets: ~16 x the pairs in one call.
+    tg_wide = targets[:16 * N_RECALL].contiguous()
+    k3w_ms = time_cuda(lambda: k3(t=tg_wide), reps=2)
+    k3w_head = torch.equal(k3(t=tg_wide)[:N_RECALL], k3_want)
+    log(f"K3 at N={n} x L={16 * N_RECALL}: kernel {k3w_ms:.4f} ms "
+        f"({k3w_ms / k3_ms:.2f} x L={N_RECALL}), first {N_RECALL} rows "
+        f"equal the L={N_RECALL} answer: {k3w_head}")
+    if not k3w_head:
+        failures.append(f"K3 at L={16 * N_RECALL} differs from L={N_RECALL}")
     del f_args
 
-    k3p_ms = time_cuda(lambda: kernels.nearest_ids(swarm.ids, tg), reps=5)
+    def k3p(ids=swarm.ids):
+        return kernels.nearest_ids(ids, tg)
+
+    k3p_ms = time_cuda(k3p, reps=10, warmup=2)
     t0 = time.perf_counter()
     k3p_want = kernels.nearest_ids_plain(swarm.ids, tg)
     torch.cuda.synchronize()
     k3p_plain_ms = (time.perf_counter() - t0) * 1e3
-    k3p_got = kernels.nearest_ids(swarm.ids, tg)
+    k3p_got = k3p()
     k3p_err = max_abs_err([k3p_got], [k3p_want])
     col0 = kernels.nearest_k_ids(swarm.ids, tg, 8)[:, 0]
     k3p_col0 = torch.equal(k3p_got, col0)
     k3p_bound, k3p_by = bound(nbytes(swarm.ids, tg) + N_RECALL * 4,
-                              n * N_RECALL)
+                              2 * n * N_RECALL)
+    k3p_parts = launch_times(k3p, "nearest_k_")
     log(f"K3' at N={n} x L={N_RECALL}: kernel {k3p_ms:.4f} ms, plain "
         f"{k3p_plain_ms:.1f} ms, bound {k3p_bound:.4f} ms ({k3p_by}), "
-        f"max_abs_err={k3p_err}, equals K3 k=8 column 0: {k3p_col0}")
+        f"max_abs_err={k3p_err}, equals K3 k=8 column 0: {k3p_col0}; by "
+        f"launch {json.dumps(k3p_parts)}")
+    k3pr_ms = time_cuda(lambda: k3p(ids_r), reps=10, warmup=2)
+    k3pr_same = torch.equal(to_rows(k3p(ids_r), perm), k3p_want)
+    log(f"K3' on the same ids in a random row order: {k3pr_ms:.4f} ms "
+        f"({k3pr_ms / k3p_ms:.3f} x sorted), same nodes {k3pr_same}")
+    if not k3pr_same:
+        failures.append("K3' on shuffled ids found other nodes")
     if not k3p_col0:
         failures.append("K3' differs from column 0 of K3's k=8 answer")
+    log("k3_times " + json.dumps({
+        "k3_sorted_ms": k3_ms, "k3_shuffled_ms": k3r_ms,
+        "k3_l8192_ms": k3w_ms, "k3_launches_ms": k3_parts,
+        "k3p_sorted_ms": k3p_ms, "k3p_shuffled_ms": k3pr_ms,
+        "k3p_launches_ms": k3p_parts, "card": card}))
+    del ids_r, alive_r, perm
     for kn, err in (("K1", k1_err), ("K2", k2_err), ("K3", k3_err),
                     ("K3'", k3p_err)):
         if err:
@@ -589,14 +662,35 @@ def phase_kernel_times(swarm, cfg, targets, gen, launches, launches_f,
          "replaces": "opendht_tpu/ops/pallas_kernels.py:159",
          "launches": launches["nearest_k_ids"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
+         "bound_by": k3_by, "library_ms": None, "shuffled_ms": k3r_ms},
         {"name": "nearest_ids", "route": "cuda",
          "source": "opendht_tpu_torch/csrc/nearest_k.cu",
          "replaces": "opendht_tpu/ops/pallas_kernels.py:580",
          "launches": launches_f["nearest_ids"], "max_abs_err": k3p_err,
          "ms": k3p_ms, "plain_ms": k3p_plain_ms, "bound_ms": k3p_bound,
-         "bound_by": k3p_by, "library_ms": None},
+         "bound_by": k3p_by, "library_ms": None, "shuffled_ms": k3pr_ms},
     ]
+
+
+def launch_times(fn, prefix: str) -> dict:
+    """Device milliseconds of each launch of one ``fn()`` call whose
+    kernel name contains ``prefix``, by name (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and prefix in ev.name):
+            name = re.search(prefix + "[a-z_]*", ev.name).group(0)
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return out
 
 
 def time_k1(args, cfg, rows: int):

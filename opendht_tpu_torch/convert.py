@@ -2,7 +2,8 @@
 
 The JAX engine's ``Swarm`` and ``LookupState`` are pytrees of arrays;
 passed here as numpy arrays, they become the port's tensors on the
-chosen device, so both packages then compute on the same state — the
+chosen device (the card unless the caller asks for the CPU, as every
+entry point resolves it), so both packages then compute on the same state — the
 counterpart of carrying a model's weights across.  Unsigned 32-bit
 arrays widen to int64 (:mod:`opendht_tpu_torch.ops.u32`); tables keep
 their bytes.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.swarm import LookupState, LookupTrace, Swarm
+from .models.swarm import LookupState, LookupTrace, Swarm, resolve_device
 
 
 def u32_tensor(x, device) -> torch.Tensor:
@@ -22,9 +23,10 @@ def u32_tensor(x, device) -> torch.Tensor:
                             ).to(device)
 
 
-def swarm_from_numpy(ids, tables, alive, device="cpu") -> Swarm:
+def swarm_from_numpy(ids, tables, alive, device=None) -> Swarm:
     """``ids [N,5] uint32``, ``tables`` (``uint16`` augmented or
     ``int32`` plain rows, byte-for-byte), ``alive [N] bool``."""
+    device = resolve_device(device)
     tables = np.array(tables)                 # a writable copy
     if tables.dtype not in (np.uint16, np.int32):
         raise TypeError(f"tables must be uint16 or int32, got {tables.dtype}")
@@ -39,9 +41,11 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 def state_from_numpy(targets, idx, dist, queried, done, hops,
                      admitted_round=None, completed_round=None,
-                     device="cpu") -> LookupState:
+                     device=None) -> LookupState:
     """A JAX ``LookupState`` as numpy arrays → the port's state; the
     lifecycle fields stay ``None`` where not given."""
+    device = resolve_device(device)
+
     def t(x, dtype):
         return None if x is None else _tensor(x, dtype, device)
 
@@ -53,9 +57,10 @@ def state_from_numpy(targets, idx, dist, queried, done, hops,
                        completed_round=t(completed_round, np.int32))
 
 
-def trace_from_numpy(*fields, device="cpu") -> LookupTrace:
+def trace_from_numpy(*fields, device=None) -> LookupTrace:
     """A JAX ``LookupTrace`` as numpy arrays, in field order (nine
     ``[max_steps]`` counter rows, then ``rounds``) → the port's trace."""
+    device = resolve_device(device)
     if len(fields) != len(LookupTrace._fields):
         raise ValueError(f"a LookupTrace has {len(LookupTrace._fields)} "
                          f"fields, got {len(fields)}")

@@ -65,10 +65,9 @@ MERGE_MAX_W = 128
 # K2 loads a row's solicitations one per lane of its row group.
 FUSED_MAX_ALPHA = 32
 # K3 supports k up to this (a private sorted list per thread, in registers).
+# Its grid, chunking and scratch layout live in csrc/nearest_k.cu alone:
+# the wrapper asks the library how much scratch a call needs.
 NEAREST_MAX_K = 16
-# Must match kTargetsPerBlock and kTile in csrc/nearest_k.cu.
-NEAREST_TPB = 128     # targets per block (one per thread)
-NEAREST_TILE = 1024   # nodes staged in shared memory at a time
 
 _libs: dict = {}
 build_logs: dict = {}
@@ -146,7 +145,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                        ll, i, i, i, i, i, p]
     else:
         fn = lib.nearest_k_launch
-        fn.argtypes = [p, p, p, ll, ll, i, ll, ll, p, p, p]
+        fn.argtypes = [p, p, p, ll, ll, i, p, ll, p, p]
+        lib.nearest_k_scratch_words.argtypes = [ll, ll, i]
+        lib.nearest_k_scratch_words.restype = ll
     fn.restype = ctypes.c_int
     return lib
 
@@ -421,7 +422,7 @@ def nearest_ids(ids: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def _nearest_k_launch(ids: torch.Tensor, targets: torch.Tensor, k: int,
                       valid: torch.Tensor | None, name: str) -> torch.Tensor:
-    """Check the arguments and launch the K3 kernel on CUDA tensors,
+    """Check the arguments and launch the K3 kernels on CUDA tensors,
     counting the launch under ``LAUNCHES[name]``."""
     if ids.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {ids.device}")
@@ -434,35 +435,23 @@ def _nearest_k_launch(ids: torch.Tensor, targets: torch.Tensor, k: int,
     if not 1 <= k <= NEAREST_MAX_K:
         raise ValueError(f"nearest_k_ids kernel takes 1 <= k <= "
                          f"{NEAREST_MAX_K}, got {k}")
-    if l > 65535 * NEAREST_TPB:          # target tiles ride grid.y
-        raise ValueError(f"nearest_k_ids kernel takes at most "
-                         f"{65535 * NEAREST_TPB} targets per call, got {l}")
+    if n >= 2**31:
+        raise ValueError(f"nearest_k_ids kernel takes fewer than 2^31 rows, "
+                         f"got {n}")
     out = torch.empty((l, k), dtype=torch.int32, device=dev)
     if l == 0:
         return out
     if n == 0:
         return out.fill_(-1)
-    n_chunks, chunk = nearest_k_chunks(n, l, dev)
-    kcap = 1 << (k - 1).bit_length()
-    part = torch.empty((l, n_chunks, kcap), dtype=torch.int32, device=dev)
     lib = _lib("nearest_k")
     with torch.cuda.device(dev):
+        words = lib.nearest_k_scratch_words(n, l, k)
+        scratch = torch.empty((words,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.nearest_k_launch(
             ids.data_ptr(), targets.data_ptr(),
-            None if valid is None else valid.data_ptr(), n, l, k, chunk,
-            n_chunks, part.data_ptr(), out.data_ptr(), stream)
+            None if valid is None else valid.data_ptr(), n, l, k,
+            scratch.data_ptr(), words, out.data_ptr(), stream)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
-
-
-def nearest_k_chunks(n: int, l: int, dev: torch.device):
-    """Split ``n`` nodes into chunks so the partial launch has about four
-    blocks per SM: ``(n_chunks, chunk)``, chunk a multiple of the tile."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-l // NEAREST_TPB)
-    want = max(1, -(-4 * sms // tiles))
-    chunk = -(-n // want)
-    chunk = -(-chunk // NEAREST_TILE) * NEAREST_TILE
-    return -(-n // chunk), chunk

@@ -38,7 +38,7 @@ KEY = jax.random.PRNGKey(7)
 
 def to_port(sw):
     return swarm_from_numpy(np.asarray(sw.ids), np.asarray(sw.tables),
-                            np.asarray(sw.alive))
+                            np.asarray(sw.alive), device="cpu")
 
 
 @pytest.mark.parametrize("name,seed,keep", FUSED_CASES)
@@ -73,7 +73,7 @@ def _numpy_swarm(cfg_t, seed, kill_frac):
     tables = tsw.build_tables(u32_tensor(ids[:, 0], "cpu"), cfg_t,
                               lambda b: torch.from_numpy(draws[b]))
     alive = r.random(n) >= kill_frac
-    sw_t = swarm_from_numpy(ids, tables.numpy(), alive)
+    sw_t = swarm_from_numpy(ids, tables.numpy(), alive, device="cpu")
     return sw_t, jsw.Swarm(ids=jnp.asarray(ids),
                            tables=jnp.asarray(tables.numpy()),
                            alive=jnp.asarray(alive))

@@ -135,11 +135,44 @@ def _nearest_case(name):
         valid[[3, 100, 250, 600, 699]] = True
     elif name == "k1":                  # a node is nearest to itself
         tg, k = ids[[0, 1, 2, 3, 699, 5, 6, 7, 8]], 1
+    elif name == "sorted_ids":
+        # Sorted as build_swarm sorts them (lexicographic on the limbs),
+        # with targets that are ids and near-ids (a flipped low bit of
+        # the last or the first limb): the nearest rows are neighbours.
+        ids = ids[np.lexsort(ids.T[::-1])]
+        tg[:3] = ids[[5, 350, 699]]
+        tg[3:6] = ids[[10, 400, 650]] ^ np.array([0, 0, 0, 0, 1], np.uint32)
+        tg[6:8] = ids[[0, 333]] ^ np.array([1, 0, 0, 0, 0], np.uint32)
+        valid[::5] = False
+    elif name == "duplicate_ids":
+        # Ten copies of one id at rows on and off a 32- and a 64-row
+        # stride (two masked), six of another: the k nearest tie on all
+        # 160 bits, so the row index decides, at the bound itself.
+        copies = [0, 32, 33, 64, 97, 128, 200, 201, 640, 699]
+        ids[copies] = ids[0]
+        valid[[33, 128]] = False
+        ids[[300, 364, 365, 500, 512, 96]] = ids[300]
+        tg[:3] = ids[[0, 300, 0]]
+        tg[2, 4] ^= np.uint32(1)
+        tg[3] = ids[300] ^ np.array([0, 0, 0, 1, 0], np.uint32)
+    elif name == "shared_first_limb":
+        # Rows that share their first limb and differ further on: ties
+        # on the first distance limb, broken by the other four.
+        ids[100:400, 0] = ids[np.arange(100, 400) % 7, 0]
+        tg[:4] = ids[[101, 205, 3, 399]]
+        tg[4:6] = ids[[2, 6]] ^ np.array([0, 1, 0, 0, 0], np.uint32)
+    elif name == "sparse_valid":
+        # One valid row in 64, none but row 64 on a 32-row stride: a
+        # sample holds fewer than k valid rows while the rows hold more.
+        valid[:] = False
+        valid[np.arange(5, 700, 64)] = True
+        valid[64] = True
     return ids, tg, valid, k
 
 
 NEAREST_CASES = ["not_tile_multiple", "high_bit", "valid_mask",
-                 "fewer_than_k", "k1"]
+                 "fewer_than_k", "k1", "sorted_ids", "duplicate_ids",
+                 "shared_first_limb", "sparse_valid"]
 
 
 @pytest.mark.parametrize("name", NEAREST_CASES)
@@ -354,6 +387,64 @@ def test_nearest_ids_kernel_matches_plain(name):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["nearest_ids"] == before + 1
     assert torch.equal(want, got.cpu())
+
+
+def _nearest_sizes_case(n, l, seed):
+    """K3 inputs of ``n`` random ids (some duplicated, more sharing their
+    first limb with another) and ``l`` targets, some of them ids, and a
+    mask with a quarter of the rows invalid."""
+    r = np.random.default_rng(seed)
+    ids = r.integers(0, 2**32, (n, 5), dtype=np.uint32)
+    ids[r.integers(0, n, n // 100)] = ids[r.integers(0, n, n // 100)]
+    ids[r.integers(0, n, n // 10), 0] = ids[r.integers(0, n, n // 10), 0]
+    tg = r.integers(0, 2**32, (l, 5), dtype=np.uint32)
+    tg[: l // 4] = ids[r.integers(0, n, l // 4)]
+    return ids, tg, r.random(n) >= 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("masked", [True, False])
+def test_nearest_k_kernel_many_chunks_and_groups(k, masked):
+    """70,000 nodes x 1,100 targets: several target groups, node chunks
+    and sample chunks for every k the list sizes take."""
+    dev = _need_card()
+    ids, tg, valid = _nearest_sizes_case(70_000, 1_100, seed=k)
+    ids_d, tg_d = to_torch(ids, dev), to_torch(tg, dev)
+    v = torch.from_numpy(valid).to(dev) if masked else None
+    want = kernels.nearest_k_ids_plain(ids_d, tg_d, k, valid=v, chunk=4096)
+    got = kernels.nearest_k_ids(ids_d, tg_d, k, valid=v)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+    if k == 1 and not masked:
+        got1 = kernels.nearest_ids(ids_d, tg_d)
+        torch.cuda.synchronize()
+        assert torch.equal(want[:, 0], got1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 8), (3, 16), (12, 16)])
+def test_nearest_k_kernel_fewer_rows_than_k(n, k):
+    dev = _need_card()
+    ids, tg, valid = _nearest_sizes_case(n, 40, seed=n)
+    for v in (torch.from_numpy(valid), None):
+        want = kernels.nearest_k_ids(to_torch(ids), to_torch(tg), k, valid=v)
+        got = kernels.nearest_k_ids(to_torch(ids, dev), to_torch(tg, dev), k,
+                                    valid=None if v is None else v.to(dev))
+        torch.cuda.synchronize()
+        assert torch.equal(want, got.cpu())
+        assert (got[:, n:] == -1).all()
+
+
+@pytest.mark.cuda
+def test_nearest_k_kernel_every_row_masked():
+    dev = _need_card()
+    ids, tg, _ = _nearest_sizes_case(5_000, 300, seed=3)
+    none = torch.zeros(5_000, dtype=torch.bool, device=dev)
+    got = kernels.nearest_k_ids(to_torch(ids, dev), to_torch(tg, dev), 8,
+                                valid=none)
+    torch.cuda.synchronize()
+    assert (got == -1).all()
 
 
 @pytest.mark.cuda

@@ -11,7 +11,7 @@ import torch
 
 from opendht_tpu.models import swarm as jsw
 from opendht_tpu_torch.convert import (state_from_numpy, swarm_from_numpy,
-                                       u32_tensor)
+                                       trace_from_numpy, u32_tensor)
 from opendht_tpu_torch.models import swarm as tsw
 
 from torch_port_cases import as_int64, assert_same
@@ -24,7 +24,7 @@ KEY = jax.random.PRNGKey(7)
 
 def to_port(sw):
     return swarm_from_numpy(np.asarray(sw.ids), np.asarray(sw.tables),
-                            np.asarray(sw.alive))
+                            np.asarray(sw.alive), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +95,8 @@ def test_lookup_step_bit_equal(churned, targets):
         st_j = jsw.lookup_step(churned, CFG_J, st_j)
         st_t = tsw.lookup_step(sw_t, CFG_T, st_t)
     # The port also steps from a state carried across from JAX.
-    st_c = state_from_numpy(*(np.asarray(x) for x in st_j[:6]))
+    st_c = state_from_numpy(*(np.asarray(x) for x in st_j[:6]),
+                            device="cpu")
     assert_same(jsw.lookup_step(churned, CFG_J, st_j)[:6],
                 tsw.lookup_step(sw_t, CFG_T, st_c), "carried state")
 
@@ -181,3 +182,24 @@ def test_entry_points_need_a_card_unless_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsw.true_closest(sw, cfg, tg)
     assert tsw.lookup(sw, cfg, tg, device="cpu").found.shape == (4, 8)
+
+
+def test_state_carrier_needs_a_card_unless_cpu(healthy):
+    """The carrier resolves its device as the entry points do: the card
+    by default, so without one it raises unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    sw = (np.asarray(healthy.ids), np.asarray(healthy.tables),
+          np.asarray(healthy.alive))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        swarm_from_numpy(*sw)
+    st = [np.zeros((4, 5), np.uint32), np.zeros((4, 14), np.int32),
+          np.zeros((4, 14, 5), np.uint32), np.zeros((4, 14), bool),
+          np.zeros(4, bool), np.zeros(4, np.int32)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        state_from_numpy(*st)
+    trace = [np.zeros(4, np.int32)] * (len(tsw.LookupTrace._fields) - 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trace_from_numpy(*trace, np.zeros((), np.int32))
+    assert swarm_from_numpy(*sw, device="cpu").ids.device.type == "cpu"
+    assert state_from_numpy(*st, device="cpu").idx.device.type == "cpu"

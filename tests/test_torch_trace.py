@@ -25,7 +25,7 @@ KEY = jax.random.PRNGKey(7)
 
 def to_port(sw):
     return swarm_from_numpy(np.asarray(sw.ids), np.asarray(sw.tables),
-                            np.asarray(sw.alive))
+                            np.asarray(sw.alive), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +93,7 @@ def test_merge_traces_and_dict(churned, targets):
               for s, r in ((0, 3), (1, 7))]]
     for chunks in pairs:
         want = jsw.merge_traces(chunks)
-        port = [trace_from_numpy(*(np.asarray(x) for x in t))
+        port = [trace_from_numpy(*(np.asarray(x) for x in t), device="cpu")
                 for t in chunks]
         got = tsw.merge_traces(port)
         assert_same(want, got, "merge_traces")
