@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's lookup engine on one CUDA card and hold each
-of its CUDA kernels against its plain PyTorch version.
+"""Drive the PyTorch port's lookup engine, its chaos engine and its
+storage plane on one CUDA card and hold each of its CUDA kernels against
+its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with one NVIDIA card and
 the CUDA toolkit:
@@ -49,11 +50,37 @@ Phases (any failure exits non-zero and prints no result line):
 7. one more lookup of each engine under ``torch.profiler``: device time
    by kernel name and the device's busy share; then each layer of a
    lookup (origin sampling, init, one round's inputs, its merge, the
-   fused prelude, K2, finalize) timed alone with CUDA events.
+   fused prelude, K2, finalize) timed alone with CUDA events;
+8. the chaos engine and the storage plane, card vs CPU at 4,096 nodes
+   (run after phase 4): ``chaos_lookup`` with the flight recorder in
+   four forms (random poison, eclipse poison, drop 0.3, undefended) —
+   results, strikes and every trace row — and a storage sequence (slots
+   4, payload_words 4, verify on: announce with 5 % forged rows, get,
+   listen, a seq-2 re-announce, ack, expire, churn + ``republish_from``)
+   compared on every store field, trace, report and get result;
+9. the chaos path at full width, on the main path's swarm and targets:
+   ``bench.py --mode chaos-lookup``'s grid (clean; kill 0.10 + heal;
+   Byzantine 0.05; drop 0.15; the three together defended with the
+   trace, undefended, and with eclipse poison) — honest recall@8 (K3,
+   512 targets), done_frac (1.0 asserted where defended), median hops,
+   wall, conviction rates, defended recall above undefended asserted —
+   its launch counts and peak memory; then K1 against its plain version
+   on an undefended eclipse round's inputs and a defended one's (holes
+   mid-row) at full width;
+10. the storage path at full width with the fused engine (K2): 1,048,576
+   content-addressed values (1 % forged) announced and read back (bytes
+   intact, integrity rejects = the forged requests at live replicas),
+   1,024 listeners and a seq-2 re-announce (every listener its lookup
+   reaches holds the new value, and no other), then churn 0.25, a
+   heal and ``republish_from`` over survivors holding at most 2,097,152
+   values, with the replication before and after, launch counts and
+   peak memory.
 
 Prints the ``ptxas`` lines of every kernel (registers, shared memory,
 spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
-``kernel_times`` and ``k3_times`` lines, a ``kernels`` JSON line, the card line, and last
+``kernel_times``, ``k3_times``, ``chaos_leg``, ``chaos_path`` and
+``storage_path`` lines, a ``kernels`` JSON line (each row with its
+launches on every path), the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -354,7 +381,7 @@ def phase_card_vs_cpu(dev, failures) -> None:
                            ("fused-round churned", churned, cfg_fused)):
         origins = sw._sample_origins(gen, s_cpu.alive, 256)
         want = sw.lookup(s_cpu, c, targets, origins=origins, device="cpu")
-        s_card = sw.Swarm(*(t.to(dev) for t in s_cpu))
+        s_card = s_cpu.to(dev)
         got = sw.lookup(s_card, c, targets.to(dev), origins=origins,
                         device=dev)
         same = all(torch.equal(a, b.cpu()) for a, b in zip(want, got))
@@ -364,7 +391,7 @@ def phase_card_vs_cpu(dev, failures) -> None:
             f"median hops {float(want.hops.float().median())})")
         if not same:
             failures.append(f"card and CPU lookups differ ({name})")
-    card = sw.Swarm(*(t.to(dev) for t in churned))
+    card = churned.to(dev)
     origins = sw._sample_origins(gen, churned.alive, 256)
     for compact in (True, False):
         want, want_tr = sw.traced_lookup(churned, cfg, targets,
@@ -396,7 +423,7 @@ def phase_card_vs_cpu(dev, failures) -> None:
                                                           cfg_plain))):
         draws = [torch.rand((c.n_nodes, c.bucket_k), generator=gen)
                  for _ in range(c.n_buckets)]
-        s_card = sw.Swarm(*(t.to(dev) for t in s_cpu))
+        s_card = s_cpu.to(dev)
         s_cpu = s_cpu._replace(tables=s_cpu.tables.clone())
         sw.heal_swarm(s_cpu, c, lambda b: draws[b])
         sw.heal_swarm(s_card, c, lambda b: draws[b].to(dev))
@@ -817,6 +844,458 @@ def layer_times(sw, swarm, cfg, targets, gen) -> dict:
     }
     return out
 
+def same_tensors(a, b) -> bool:
+    """Exact equality of two results: tensors, ``None``, numbers and
+    (named) tuples of them, a card result against a CPU one."""
+    import torch
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(same_tensors(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def phase_chaos_storage_card_vs_cpu(dev, failures) -> None:
+    """The chaos engine and the storage plane, card vs CPU at 4,096
+    nodes: chaos lookups (256, traced) in four forms, and a storage
+    sequence (slots 4, payload_words 4, verify on) compared on every
+    store field, trace, report and get result after each step."""
+    import torch
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.ops.sha1 import sha1_words
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n, l = 4096, 256
+    cfg = sw.SwarmConfig.for_nodes(n, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    base = sw.build_swarm(cfg, gen, device="cpu")
+    byz = sw.corrupt_swarm(sw.churn(base, gen, 0.1, cfg), gen, 0.05, cfg)
+    card = byz.to(dev)
+    targets = torch.randint(0, 2**32, (l, 5), generator=gen)
+    origins = sw._sample_origins(gen, byz.alive & ~byz.byzantine, l)
+    forms = {"random poison": sw.LookupFaults(seed=3),
+             "eclipse poison": sw.LookupFaults(eclipse=True, seed=3),
+             "drop 0.3": sw.LookupFaults(drop_frac=0.3, seed=3),
+             "undefended": sw.LookupFaults(eclipse=True, seed=3,
+                                           defend=False)}
+    for name, faults in forms.items():
+        want = sw.chaos_lookup(byz, cfg, targets, faults=faults,
+                               origins=origins, collect_trace=True,
+                               device="cpu")
+        got = sw.chaos_lookup(card, cfg, targets, faults=faults,
+                              origins=origins, collect_trace=True,
+                              device=dev)
+        same = same_tensors(want, got)
+        log(f"chaos_lookup card vs CPU, {n} nodes, {l} lookups, {name}: "
+            f"{'bit-equal' if same else 'DIFFERENT'} (results, strikes and "
+            f"every trace row; poison {int(want[2].poison.sum())}, "
+            f"convicted {int((want[1] >= faults.strike_limit).sum())}, "
+            f"{int(want[2].rounds)} rounds)")
+        if not same:
+            failures.append(f"card and CPU chaos lookups differ ({name})")
+
+    scfg = stg.StoreConfig(slots=4, listen_slots=2, max_listeners=1024,
+                           ttl=30, payload_words=4, verify=True)
+    p = 512
+    pl = torch.randint(0, 2**32, (p, 4), generator=gen)
+    keys = sha1_words(pl)
+    forged = torch.rand((p,), generator=gen) < 0.05
+    keys[:, 4] ^= forged.to(torch.int64)
+    vals = torch.arange(1, p + 1)
+    ttls = torch.where(torch.arange(p) % 2 == 0, 0, 100)
+    regs = torch.arange(64, dtype=torch.int32)
+    world = {"cpu": [base, stg.empty_store(n, scfg, device="cpu")],
+             "card": [base.to(dev), stg.empty_store(n, scfg, device=dev)]}
+
+    def o(rows, alive=None):
+        return sw._sample_origins(gen, base.alive if alive is None
+                                  else alive, rows)
+
+    churn_keep = torch.rand((n,), generator=gen) >= 0.25
+    node_idx = torch.nonzero(base.alive & churn_keep).squeeze(1)[:600]
+    node_idx = node_idx.to(torch.int32)
+    def on(d, *xs):
+        return [x.to(d) for x in xs]
+
+    steps = [
+        ("announce (5 % forged)", lambda w, d, og: stg.announce(
+            w[0], cfg, w[1], scfg, *on(d, keys, vals, torch.ones_like(vals)),
+            1, ttls=ttls.to(d), payloads=pl.to(d), origins=og, device=d),
+         o(p)),
+        ("get", lambda w, d, og: (w[1], stg.get_values(
+            w[0], cfg, w[1], scfg, keys.to(d), origins=og, device=d)), o(p)),
+        ("listen", lambda w, d, og: stg.listen_at(
+            w[0], cfg, w[1], scfg, *on(d, keys[:64], regs), now=2,
+            origins=og, device=d), o(64)),
+        ("seq-2 re-announce", lambda w, d, og: stg.announce(
+            w[0], cfg, w[1], scfg, *on(d, keys[:64], vals[:64] + 1000,
+                                       torch.full((64,), 2)),
+            3, payloads=pl[:64].to(d), origins=og, device=d), o(64)),
+        ("ack", lambda w, d, og: (stg.ack_listeners(w[1], regs[:32].to(d)),),
+         None),
+        ("expire", lambda w, d, og: (stg.expire(w[1], scfg, 40),), None),
+    ]
+    for name, fn, og in steps:
+        outs = {}
+        for where, w in world.items():
+            d = "cpu" if where == "cpu" else dev
+            out = fn(w, d, og)
+            w[1] = out[0]
+            outs[where] = out
+        same = same_tensors(outs["cpu"], outs["card"])
+        log(f"storage card vs CPU, {n} nodes, {name}: "
+            f"{'bit-equal' if same else 'DIFFERENT'} (every store field "
+            f"and output)")
+        if not same:
+            failures.append(f"card and CPU storage differ ({name})")
+    # Churn, then republish from 600 survivors (one origin a lookup row).
+    for w in world.values():
+        w[0] = w[0]._replace(alive=w[0].alive & churn_keep.to(
+            w[0].alive.device))
+    order, n_live = stg._repub_live(world["cpu"][0].alive, world["cpu"][1],
+                                    node_idx, cfg, scfg)
+    m = node_idx.shape[0] * scfg.slots
+    rows = min(m, stg.pow2_width(int(n_live), stg._REPUB_COMPACT_FLOOR))
+    og = o(rows, world["cpu"][0].alive)
+    outs = {}
+    for where, w in world.items():
+        d = "cpu" if where == "cpu" else dev
+        st: dict = {}
+        w[1], rep = stg.republish_from(w[0], cfg, w[1], scfg,
+                                       node_idx.to(d), 5, stats=st,
+                                       origins=og, device=d)
+        outs[where] = (w[1], rep, st["lookup_rows"])
+    same = same_tensors(outs["cpu"], outs["card"])
+    log(f"storage card vs CPU, {n} nodes, churn 0.25 + republish_from "
+        f"({m} rows, {rows} looked up): "
+        f"{'bit-equal' if same else 'DIFFERENT'} (every store field, report "
+        f"and trace: {outs['cpu'][1].trace.to_dict()})")
+    if not same:
+        failures.append("card and CPU storage differ (republish)")
+    log(f"chaos and storage card vs CPU: peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
+
+def phase_chaos_full(sw, swarm, cfg, targets, card, failures):
+    """``bench.py --mode chaos-lookup``'s grid on the main path's swarm:
+    clean; kill 0.10 with heal; Byzantine 0.05; drop 0.15; the three
+    together defended with the trace, undefended, and with eclipse
+    poison.  Each leg: honest recall@8 (K3 on 512 targets), done_frac,
+    median hops, wall time and conviction rates.  Then K1 against its
+    plain version at full width on the adversarial rounds' inputs.
+    Returns the chaos path's launch counts."""
+    import torch
+    from opendht_tpu_torch.ops import kernels
+
+    dev = swarm.ids.device
+    n, l = swarm.ids.shape[0], targets.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(40)
+    healed = sw.churn(swarm._replace(tables=swarm.tables.clone()), gen,
+                      0.10, cfg)
+    sw.heal_swarm(healed, cfg, gen)
+    byz = sw.corrupt_swarm(swarm, gen, 0.05, cfg).byzantine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    legs = [("clean", 0.0, 0.0, 0.0, True, False),
+            ("kill", 0.10, 0.0, 0.0, True, False),
+            ("byzantine", 0.0, 0.05, 0.0, True, False),
+            ("drop", 0.0, 0.0, 0.15, True, False),
+            ("headline", 0.10, 0.05, 0.15, True, False),
+            ("headline_undefended", 0.10, 0.05, 0.15, False, False),
+            ("headline_eclipse", 0.10, 0.05, 0.15, True, True)]
+    rows = {}
+    for name, kill, bf, drop, defend, eclipse in legs:
+        s = healed if kill else swarm
+        s = s._replace(byzantine=byz if bf else None)
+        faults = sw.LookupFaults(drop_frac=drop, eclipse=eclipse, seed=11,
+                                 defend=defend)
+        honest = s.alive if s.byzantine is None else s.alive & ~s.byzantine
+        origins = sw._sample_origins(
+            torch.Generator(device=dev).manual_seed(5), honest, l)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sw.chaos_lookup(s, cfg, targets, faults=faults,
+                              origins=origins,
+                              collect_trace=name == "headline")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res, strikes = out[0], out[1]
+        sample = sw.LookupResult(*(x[:N_RECALL] for x in res))
+        row = {"kill_frac": kill, "byzantine_frac": bf, "drop_frac": drop,
+               "defend": defend, "eclipse": eclipse,
+               "recall_at_8": float(sw.honest_recall(
+                   s, cfg, sample, targets[:N_RECALL]).mean()),
+               "done_frac": float(res.done.float().mean()),
+               "median_hops": float(res.hops.float().median()),
+               "wall_s": wall, "lookups_per_s": l / wall}
+        if bf and defend:
+            conv = strikes >= faults.strike_limit
+            row["convicted_byzantine_frac"] = float(
+                conv[byz & s.alive].float().mean())
+            row["convicted_honest_frac"] = float(
+                conv[~byz & s.alive].float().mean())
+        if name == "headline":
+            d = sw.trace_to_dict(out[2], l)
+            row["trace"] = {k: d["counters"][k] for k in (
+                "requests", "drops", "poison", "strikes", "convictions",
+                "done")}
+        rows[name] = row
+        log(f"chaos_leg {name} " + json.dumps(row))
+        if defend and row["done_frac"] != 1.0:
+            failures.append(f"chaos leg {name}: done_frac "
+                            f"{row['done_frac']} != 1.0")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if rows["headline"]["recall_at_8"] <= rows["headline_undefended"][
+            "recall_at_8"]:
+        failures.append("chaos: defended headline recall is not above the "
+                        "undefended one")
+    if launches["merge_round"] <= 0:
+        failures.append("merge_round was not launched on the chaos path")
+    log("chaos_path " + json.dumps({
+        "n_nodes": n, "n_lookups": l, "launches": launches,
+        "peak_memory_bytes": peak, "card": card}))
+
+    # K1 on adversarial rounds at full width: an undefended eclipse
+    # round (rows full of colluder ids claimed near zero) and a defended
+    # one (rejected candidates -1 / all-ones mid-row), each after two
+    # rounds of the headline swarm.
+    s = healed._replace(byzantine=byz)
+    origins = sw._sample_origins(gen, s.alive & ~byz, l)
+    aux = sw.byz_colluder_pool(byz)
+    for name, defend in (("undefended eclipse", False),
+                         ("defended eclipse", True)):
+        faults = sw.LookupFaults(drop_frac=0.15, eclipse=True, seed=11,
+                                 defend=defend)
+        st = sw.chaos_lookup_init(s, cfg, targets, origins)
+        strikes = torch.zeros((n,), dtype=torch.int32, device=dev)
+        for r in range(2):
+            st, strikes = sw.chaos_lookup_step(s, cfg, faults, st, strikes,
+                                               r, aux)
+        args = sw.chaos_round_inputs(s, cfg, faults, st, strikes, 2, aux)[3]
+        ms, plain_ms, err, b_ms, b_by = time_k1(args, cfg, 1 << 17)
+        ri, rd = args[3], args[4]
+        blocks = ri.view(l, -1, cfg.bucket_k)
+        log(f"K1 vs plain on a chaos round at full width, {name}, round 2: "
+            f"max_abs_err={err} (tolerance 0), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); candidates "
+            f"claimed near zero {int(((ri >= 0) & (rd < 2**15)).sum())}, "
+            f"blocks with a hole "
+            f"{int(((blocks < 0).any(-1) & (blocks >= 0).any(-1)).sum())}")
+        if err:
+            failures.append(f"K1 disagrees with its plain version on the "
+                            f"{name} round (err {err})")
+        if defend:
+            layers = chaos_layer_times(sw, s, cfg, st, strikes, aux, args)
+            log("chaos_layers_ms " + json.dumps(layers))
+        del args, st, strikes
+    del healed, s
+    torch.cuda.empty_cache()
+    return launches
+
+
+def chaos_layer_times(sw, s, cfg, st, strikes, aux, merge_args) -> dict:
+    """Milliseconds of each layer of one full-width chaos round (the
+    headline swarm's round 2, CUDA events): the plain round's inputs,
+    the chaos round's inputs with the poison only, with the poison and
+    the drop, and defended (eviction, poison, drop, the limb-0 check),
+    the K1 merge, and the whole defended step (adding the hop/done
+    update and the strike accounting)."""
+    from opendht_tpu_torch.ops import kernels
+
+    def faults(defend, drop):
+        return sw.LookupFaults(drop_frac=drop, eclipse=True, seed=11,
+                               defend=defend)
+
+    def inputs(f):
+        return lambda: sw.chaos_round_inputs(s, cfg, f, st, strikes, 2, aux)
+
+    return {
+        "plain_round_inputs": time_cuda(lambda: sw.round_inputs(s, cfg, st),
+                                        reps=3),
+        "chaos_inputs_poison": time_cuda(inputs(faults(False, 0.0)), reps=3),
+        "chaos_inputs_poison_drop": time_cuda(inputs(faults(False, 0.15)),
+                                              reps=3),
+        "chaos_inputs_defended": time_cuda(inputs(faults(True, 0.15)),
+                                           reps=3),
+        "merge_round_k1": time_cuda(lambda: kernels.merge_round(
+            *merge_args, quorum=cfg.quorum, keep=cfg.search_width), reps=3),
+        "chaos_step_defended": time_cuda(lambda: sw.chaos_step_impl(
+            s, cfg, faults(True, 0.15), st, strikes, 2, aux), reps=3),
+    }
+
+
+def phase_storage_full(sw, swarm, cfg_f, card, failures):
+    """The storage plane on the main path's swarm with the fused engine
+    (K2): 1,048,576 content-addressed values (1 % forged) announced and
+    read back, 1,024 listeners and a seq-2 re-announce of their keys, then
+    ``churn(0.25)``, a heal and ``republish_from`` over survivors holding
+    at most 2,097,152 values.  Returns the storage path's launch
+    counts."""
+    import torch
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.ops.sha1 import sha1_words
+
+    dev = swarm.ids.device
+    n = swarm.ids.shape[0]
+    p = N_LOOKUPS
+    scfg = stg.StoreConfig(slots=16, listen_slots=1, max_listeners=1 << 10,
+                           payload_words=8, verify=True)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    pl = torch.randint(0, 2**32, (p, 8), generator=gen, device=dev)
+    keys = sha1_words(pl)
+    forged = torch.rand((p,), generator=gen, device=dev) < 0.01
+    keys[:, 4] ^= forged.to(torch.int64)
+    vals = torch.arange(1, p + 1, device=dev)
+    put_origins = sw._sample_origins(gen, swarm.alive, p)
+    t0 = time.perf_counter()
+    sha1_words(pl)
+    torch.cuda.synchronize()
+    sha1_s = time.perf_counter() - t0
+    # The forged requests that reach a live replica: the same lookup as
+    # the announce's (same origins), run once more beforehand (timed: the
+    # announce's lookup layer).
+    t0 = time.perf_counter()
+    found = sw.lookup(swarm, cfg_f, keys, origins=put_origins).found
+    torch.cuda.synchronize()
+    put_lookup_s = time.perf_counter() - t0
+    live = (found >= 0) & swarm.alive[found.clamp(min=0).long()]
+    want_rejects = int(live[forged].sum())
+    del found, live
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    store = stg.empty_store(n, scfg)
+    t0 = time.perf_counter()
+    store, rep = stg.announce(swarm, cfg_f, store, scfg, keys, vals,
+                              torch.ones_like(vals), 1, payloads=pl,
+                              origins=put_origins)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    tr = rep.trace.to_dict()
+    get_origins = sw._sample_origins(gen, swarm.alive, p)
+    t0 = time.perf_counter()
+    sw.lookup(swarm, cfg_f, keys, origins=get_origins)
+    torch.cuda.synchronize()
+    get_lookup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = stg.get_values(swarm, cfg_f, store, scfg, keys, origins=get_origins)
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    honest = ~forged
+    bytes_ok = bool((g.payload[g.hit] == pl[g.hit]).all()
+                    and (g.val[g.hit] == vals[g.hit]).all())
+    out = {"n_nodes": n, "n_values": p, "forged": int(forged.sum()),
+           "puts_per_s": p / put_s, "put_wall_s": put_s,
+           "gets_per_s": p / get_s, "get_wall_s": get_s,
+           "layers_s": {"sha1_words_1M_rows": sha1_s,
+                        "put_lookup": put_lookup_s,
+                        "put_insert": put_s - put_lookup_s,
+                        "get_lookup": get_lookup_s,
+                        "get_probe": get_s - get_lookup_s},
+           "hit_rate": float(g.hit[honest].float().mean()),
+           "forged_hits": int(g.hit[forged].sum()),
+           "mean_replicas": float(rep.replicas[honest].float().mean()),
+           "put_median_hops": float(rep.hops.float().median()),
+           "get_median_hops": float(g.hops.float().median()),
+           "put_done_frac": float(rep.done.float().mean()),
+           "bytes_intact": bytes_ok, "trace": tr,
+           "forged_requests_at_live_replicas": want_rejects}
+    if not bytes_ok or out["forged_hits"]:
+        failures.append("storage: a hit's bytes differ from the put, or a "
+                        "forged key was read back")
+    if tr["integrity_rejects"] != want_rejects:
+        failures.append(f"storage: integrity_rejects "
+                        f"{tr['integrity_rejects']} != {want_rejects} forged "
+                        f"requests at live replicas")
+    if out["hit_rate"] < 0.99:
+        failures.append(f"storage: hit rate {out['hit_rate']} < 0.99")
+    del g
+
+    # 1,024 listeners, then a seq-2 re-announce of their keys.
+    idx = torch.nonzero(honest).squeeze(1)[:1024]
+    regs = torch.arange(1024, dtype=torch.int32, device=dev)
+    store, _ = stg.listen_at(swarm, cfg_f, store, scfg, keys[idx], regs,
+                             gen, now=2)
+    # A listener is notified where the re-announce reaches a node holding
+    # its registration: the re-announce's own lookup (same origins, run
+    # once more beforehand) names those nodes, so every listener so
+    # reached must hold the new value, and no other.
+    ann_origins = sw._sample_origins(gen, swarm.alive, idx.shape[0])
+    found = sw.lookup(swarm, cfg_f, keys[idx], origins=ann_origins).found
+    lids = store.lids[found.clamp(min=0).long()][..., 0]      # [1024, Q]
+    reached = ((found >= 0) & (lids == regs[:, None])).any(dim=1)
+    held = torch.zeros((1024,), dtype=torch.bool, device=dev)
+    held[store.lids[store.lids >= 0].long()] = True
+    new_vals = vals[idx] + p
+    store, rep2 = stg.announce(swarm, cfg_f, store, scfg, keys[idx],
+                               new_vals, torch.full_like(new_vals, 2), 3,
+                               payloads=pl[idx], origins=ann_origins)
+    got = (store.notified & (store.nvals == new_vals) & (store.nseqs == 3)
+           & (store.npayload == pl[idx]).all(dim=1))
+    out["listeners"] = {"count": 1024, "registered": int(held.sum()),
+                        "reached_by_the_announce": int(reached.sum()),
+                        "notified_with_new_value": int(got.sum()),
+                        "trace": rep2.trace.to_dict()}
+    if not torch.equal(got, reached) or int(reached.sum()) < 1000:
+        failures.append("storage: the listeners notified with the seq-2 "
+                        "value are not those its announce reached, or fewer "
+                        "than 1,000 were reached")
+
+    # Churn, heal, and republish from survivors holding <= 2,097,152
+    # values (the lookup batch).
+    churned = sw.churn(swarm._replace(tables=swarm.tables.clone()), gen,
+                       0.25, cfg_f)
+    sw.heal_swarm(churned, cfg_f, gen)
+    n_honest = int(honest.sum())
+    sample = torch.nonzero(honest).squeeze(1)[:65536]
+
+    def replication():
+        copies = int((store.used & churned.alive[:, None]).sum())
+        g = stg.get_values(churned, cfg_f, store, scfg, keys[sample], gen)
+        return {"live_copies_per_value": copies / n_honest,
+                "sample_hit_rate": float(g.hit.float().mean())}
+
+    out["before_republish"] = replication()
+    alive_idx = torch.nonzero(churned.alive).squeeze(1)
+    alive_idx = alive_idx[torch.randperm(alive_idx.shape[0], generator=gen,
+                                         device=dev)]
+    held = torch.cumsum(store.used[alive_idx].sum(dim=1), 0)
+    m_nodes = int(torch.searchsorted(held, 1 << 21, right=True))
+    node_idx = alive_idx[:m_nodes].to(torch.int32)
+    st: dict = {"time_phases": True}
+    store, rep3 = stg.republish_from(churned, cfg_f, store, scfg, node_idx,
+                                     4, gen, stats=st)
+    out["republish"] = {"nodes": m_nodes, "stats": st,
+                        "replicas_mean": float(
+                            rep3.replicas.float().sum() / max(1, int(
+                                (rep3.replicas > 0).sum()))),
+                        "trace": rep3.trace.to_dict()}
+    out["after_republish"] = replication()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    out["launches"] = launches
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["card"] = card
+    log("storage_path " + json.dumps(out))
+    if st["lookup_rows"] > 1 << 21:
+        failures.append(f"republish looked up {st['lookup_rows']} rows")
+    if (out["after_republish"]["live_copies_per_value"]
+            <= out["before_republish"]["live_copies_per_value"]):
+        failures.append("republish did not raise the replication")
+    if launches["fused_round"] <= 0:
+        failures.append("fused_round was not launched on the storage path")
+    del store, churned
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main() -> int:
     import torch
@@ -844,6 +1323,7 @@ def main() -> int:
 
     phase_kernels_vs_plain(dev, failures)
     phase_card_vs_cpu(dev, failures)
+    phase_chaos_storage_card_vs_cpu(dev, failures)
 
     # ---- the main path -------------------------------------------------
     cfg = sw.SwarmConfig.for_nodes(N_NODES)
@@ -937,6 +1417,15 @@ def main() -> int:
                                                      targets, gen)))
     log("layers_ms " + json.dumps(layer_times(sw, swarm, cfg, targets,
                                               gen)))
+
+    # ---- this slice's paths: the chaos engine and the storage plane ----
+    launches_c = phase_chaos_full(sw, swarm, cfg, targets, card, failures)
+    launches_s = phase_storage_full(sw, swarm, cfg_f, card, failures)
+    by_path = {"main": launches, "fused": launches_f, "chaos": launches_c,
+               "storage": launches_s}
+    for row in kernel_rows:
+        row["launches_by_path"] = {k: v[row["name"]]
+                                   for k, v in by_path.items()}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:

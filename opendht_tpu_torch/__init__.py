@@ -1,9 +1,12 @@
 """opendht_tpu_torch — the swarm lookup engine in PyTorch, with its
-round-merge and nearest-k kernels written in CUDA C++ for Hopper.
+round-merge and nearest-k kernels written in CUDA C++ for Hopper, the
+adversarial (chaos) engine beside it, and the storage plane with SHA-1
+content ids.
 
 The package mirrors the layout of ``opendht_tpu`` (``ops/xor_metric.py``,
-``ops/kernels.py``, ``models/swarm.py``) so each function has an obvious
-counterpart there, and computes bit-identical results on the same state
+``ops/kernels.py``, ``ops/sha1.py``, ``models/swarm.py``,
+``models/storage.py``) so each function has an obvious counterpart
+there, and computes bit-identical results on the same state
 (``tests/test_torch_*.py``).  It imports ``torch`` and nothing of JAX.
 
 Conventions:

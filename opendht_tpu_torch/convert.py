@@ -1,6 +1,7 @@
 """Carry swarm and lookup state across from the JAX package.
 
-The JAX engine's ``Swarm`` and ``LookupState`` are pytrees of arrays;
+The JAX engine's ``Swarm``, ``LookupState`` and ``SwarmStore`` are
+pytrees of arrays;
 passed here as numpy arrays, they become the port's tensors on the
 chosen device (the card unless the caller asks for the CPU, as every
 entry point resolves it), so both packages then compute on the same state — the
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.storage import SwarmStore
 from .models.swarm import LookupState, LookupTrace, Swarm, resolve_device
 
 
@@ -23,16 +25,20 @@ def u32_tensor(x, device) -> torch.Tensor:
                             ).to(device)
 
 
-def swarm_from_numpy(ids, tables, alive, device=None) -> Swarm:
+def swarm_from_numpy(ids, tables, alive, byzantine=None,
+                     device=None) -> Swarm:
     """``ids [N,5] uint32``, ``tables`` (``uint16`` augmented or
-    ``int32`` plain rows, byte-for-byte), ``alive [N] bool``."""
+    ``int32`` plain rows, byte-for-byte), ``alive [N] bool`` and,
+    optionally, ``byzantine [N] bool``."""
     device = resolve_device(device)
     tables = np.array(tables)                 # a writable copy
     if tables.dtype not in (np.uint16, np.int32):
         raise TypeError(f"tables must be uint16 or int32, got {tables.dtype}")
     return Swarm(ids=u32_tensor(ids, device),
                  tables=torch.from_numpy(tables).to(device),
-                 alive=torch.from_numpy(np.array(alive, bool)).to(device))
+                 alive=_tensor(alive, bool, device),
+                 byzantine=(None if byzantine is None
+                            else _tensor(byzantine, bool, device)))
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -65,3 +71,27 @@ def trace_from_numpy(*fields, device=None) -> LookupTrace:
         raise ValueError(f"a LookupTrace has {len(LookupTrace._fields)} "
                          f"fields, got {len(fields)}")
     return LookupTrace(*[_tensor(x, np.int32, device) for x in fields])
+
+
+def store_from_numpy(*fields, device=None) -> SwarmStore:
+    """A JAX ``SwarmStore`` as numpy arrays, in field order → the port's
+    store.  The JAX store's flat key, payload and listener arrays become
+    the shaped ``[N,S,5]``, ``[N,S,W]``, ``[N,LS,5]`` and ``[N,LS]``
+    planes (the same elements in the same order); uint32 fields widen to
+    int64."""
+    device = resolve_device(device)
+    if len(fields) != len(SwarmStore._fields):
+        raise ValueError(f"a SwarmStore has {len(SwarmStore._fields)} "
+                         f"fields, got {len(fields)}")
+    f = dict(zip(SwarmStore._fields, map(np.asarray, fields)))
+    n, s = f["vals"].shape
+    ls = f["lids"].size // max(n, 1)
+    w = f["npayload"].shape[1]
+    shapes = {"keys": (n, s, 5), "lkeys": (n, ls, 5), "lids": (n, ls),
+              "lexps": (n, ls), "payload": (n, s, w)}
+    out = {}
+    for name, x in f.items():
+        x = x.reshape(shapes.get(name, x.shape))
+        out[name] = (u32_tensor(x, device) if x.dtype == np.uint32
+                     else _tensor(x, x.dtype, device))
+    return SwarmStore(**out)

@@ -20,8 +20,11 @@ PyTorch version.
 
 Beside the engine: the flight recorder (:class:`LookupTrace`,
 :func:`traced_lookup`), the per-request lifecycle plane
-(:func:`init_lifecycle`, ``lookup(track_lifecycle=True)``) and routing
-table maintenance after churn (:func:`heal_swarm`).
+(:func:`init_lifecycle`, ``lookup(track_lifecycle=True)``), routing
+table maintenance after churn (:func:`heal_swarm`), and the adversarial
+engine (:func:`chaos_lookup`: Byzantine responders marked by
+:func:`corrupt_swarm`, reply loss, and the strike/blacklist defence,
+sharing the plain engine's round tail and so K1).
 
 The round loop runs on the host and reads the device back once per
 burst of rounds (the fused pending/watermark pair), never per round.
@@ -37,7 +40,7 @@ import torch
 from ..ops import kernels
 from ..ops.round_parts import (fold_solicitations, gather_pair_windows,
                                unpack_pair_window)
-from ..ops.u32 import MASK32, U32_MAX, lexsort, prefix_len32, shl32
+from ..ops.u32 import MASK32, U32_MAX, lexsort, mul32, prefix_len32, shl32
 from ..ops.xor_metric import (
     N_LIMBS,
     closest_nodes_batched,
@@ -182,10 +185,17 @@ class Swarm(NamedTuple):
     rows — per bucket ``b`` at ``[b·3K, (b+1)·3K)``: the K members'
     index low halves, high halves, then their 16-bit windows (bits
     ``[b, b+16)`` of limb 0; empty = 0xFFFF halves) — or plain
-    ``[N, B·K] int32`` member indices (-1 = empty)."""
+    ``[N, B·K] int32`` member indices (-1 = empty).  ``byzantine``
+    (``None`` unless :func:`corrupt_swarm` set it) marks the nodes whose
+    answers the chaos engine poisons; the plain engine ignores it."""
     ids: torch.Tensor     # [N,5] int64 u32 limbs, lexicographically sorted
     tables: torch.Tensor  # see above
     alive: torch.Tensor   # [N] bool
+    byzantine: torch.Tensor | None = None   # [N] bool
+
+    def to(self, device) -> "Swarm":
+        """The same swarm with every tensor on ``device``."""
+        return Swarm(*[x if x is None else x.to(device) for x in self])
 
 
 class LookupState(NamedTuple):
@@ -469,6 +479,20 @@ def churn(swarm: Swarm, generator: torch.Generator, kill_frac: float,
     keep = torch.rand((cfg.n_nodes,), generator=generator,
                       device=swarm.alive.device) >= kill_frac
     return swarm._replace(alive=swarm.alive & keep)
+
+
+def corrupt_swarm(swarm: Swarm, generator: torch.Generator | None,
+                  byzantine_frac: float, cfg: SwarmConfig, *,
+                  mask: torch.Tensor | None = None) -> Swarm:
+    """Mark a uniform fraction of nodes Byzantine — the adversarial twin
+    of :func:`churn`.  Byzantine nodes stay alive and keep answering,
+    but the chaos engine (:func:`chaos_lookup`) poisons their answers.
+    ``mask`` (``[N]`` bool, e.g. the JAX package's draw) is taken as it
+    is; otherwise ``generator`` draws it."""
+    if mask is None:
+        mask = torch.rand((cfg.n_nodes,), generator=generator,
+                          device=swarm.alive.device) < byzantine_frac
+    return swarm._replace(byzantine=mask.to(swarm.alive.device))
 
 
 # ---------------------------------------------------------------------------
@@ -1013,8 +1037,331 @@ def lookup_recall(swarm: Swarm, cfg: SwarmConfig, result: LookupResult,
     return match.any(dim=2).to(torch.float32).mean(dim=1)
 
 
+def honest_recall(swarm: Swarm, cfg: SwarmConfig, result: LookupResult,
+                  targets: torch.Tensor, k: int = 8) -> torch.Tensor:
+    """:func:`lookup_recall` against the honest alive ground truth
+    (``alive & ~byzantine``) — the chaos engine's survival metric."""
+    return lookup_recall(swarm, cfg, result, targets, k,
+                         valid=_honest_alive(swarm))
+
+
+def _honest_alive(swarm: Swarm) -> torch.Tensor:
+    return (swarm.alive if swarm.byzantine is None
+            else swarm.alive & ~swarm.byzantine)
+
+
 def hop_histogram(hops: torch.Tensor, max_steps: int) -> torch.Tensor:
     """``[max_steps + 1]`` int32 counts of lookups by rounds taken, the
     last bin absorbing ``>= max_steps``."""
     h = hops.clamp(0, max_steps).long()
     return torch.bincount(h, minlength=max_steps + 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# adversarial lookups: Byzantine responders, reply loss, and the
+# strike/blacklist defence
+# ---------------------------------------------------------------------------
+
+class LookupFaults(NamedTuple):
+    """The fault and defence model of :func:`chaos_lookup`.
+
+    * ``drop_frac`` — fraction of delivered replies lost in transit (a
+      hash-drawn Bernoulli per (node, target, round)); the entry stays
+      unqueried and is solicited again next round;
+    * ``eclipse`` — how Byzantine responders (``Swarm.byzantine``) lie:
+      False names random nodes at a near-zero claimed distance, True
+      names fellow Byzantine nodes (colluder promotion);
+    * ``seed`` — the stateless fault stream's seed;
+    * ``strike_limit`` — strikes before a node is blacklisted;
+    * ``defend`` — False turns off the claim check and the strike
+      accounting, to measure the undefended damage."""
+    drop_frac: float = 0.0
+    eclipse: bool = False
+    seed: int = 0
+    strike_limit: int = 3
+    defend: bool = True
+
+
+def _fault_hash(x: torch.Tensor, y: torch.Tensor, rnd,
+                seed: int) -> torch.Tensor:
+    """Stateless per-exchange u32 hash (a murmur-style finaliser), the
+    chaos engine's counter-based random stream: deterministic per
+    (x, y, round, seed), so fault schedules replay exactly with no
+    generator threaded through the round loop.  ``x``, ``y``: int64
+    tensors read as u32 (broadcasting); ``rnd``: an int or a tensor.
+    Every product is :func:`~opendht_tpu_torch.ops.u32.mul32`, so no
+    int64 multiply overflows and no right shift sees a negative."""
+    if isinstance(rnd, torch.Tensor):
+        r = mul32((rnd.to(torch.int64) + (seed & MASK32)) & MASK32,
+                  0xC2B2AE35)
+    else:
+        r = (((int(rnd) + seed) & MASK32) * 0xC2B2AE35) & MASK32
+    h = (mul32(x.to(torch.int64) & MASK32, 0x9E3779B1)
+         ^ mul32(y.to(torch.int64) & MASK32, 0x85EBCA6B) ^ r)
+    h = h ^ (h >> 16)
+    h = mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = mul32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
+def byz_colluder_pool(byzantine: torch.Tensor):
+    """The eclipse poison's colluder pool, computed once a run: a stable
+    argsort puts the Byzantine indices first (``[N]`` int32), and their
+    count, at least 1 (``[]`` int64, unused when no responder lies)."""
+    pool = torch.argsort((~byzantine).to(torch.uint8), stable=True)
+    return pool.to(torch.int32), byzantine.sum().clamp(min=1)
+
+
+def _count_at(node: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
+    """``[n]`` int32 count of the ``mask``ed entries of ``node`` per
+    node (JAX's ``.at[where(mask, node, n)].add(1, mode="drop")``: the
+    masked entries land in a spare bin that is cut off)."""
+    idx = torch.where(mask, node.to(torch.int64), n).flatten()
+    out = torch.zeros((n + 1,), dtype=torch.int32, device=node.device)
+    return out.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))[:n]
+
+
+def chaos_round_inputs(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
+                       st: LookupState, strikes: torch.Tensor, rnd: int,
+                       byz_aux=None):
+    """The first half of an adversarial round, in this order:
+
+    1. blacklist eviction: nodes at ``strikes >= strike_limit`` leave
+       every shortlist (defended runs);
+    2. α select; the solicitations of live nodes are answered;
+    3. the poison: a Byzantine responder's every candidate slot becomes
+       a hash-drawn node id (random, or a colluder under ``eclipse``)
+       claimed at a near-zero distance (top 17 bits clear);
+    4. the drop: a ``drop_frac`` share of delivered replies is lost;
+    5. the defence's check: each candidate's claimed distance is
+       compared with the exact first limb on its top 16 bits (honest
+       windows are exact there, so a mismatch proves a lie), and
+       contradicted or blacklisted candidates become -1 / all-ones in
+       place, mid-row;
+
+    then the fold of the solicitations' outcomes into the frontier
+    (answered after the drop → queried, dead → evicted).  Returns
+    ``(st, sel, q_hit, merge_args, outcome)``: the state after the
+    eviction, the round merge's inputs ``merge_args`` exactly as
+    :func:`round_inputs` gives them, and ``outcome = (succ, dropm,
+    malformed, poison_ct)`` for the strike accounting."""
+    n = cfg.n_nodes
+    t0 = st.targets[:, 0]
+    if faults.defend:
+        blk = strikes >= faults.strike_limit
+        conv = (st.idx >= 0) & blk[st.idx.clamp(0, n - 1).long()]
+        st = st._replace(idx=torch.where(conv, -1, st.idx),
+                         dist=torch.where(conv, U32_MAX, st.dist),
+                         queried=st.queried & ~conv)
+
+    sel, sel_d0, sel_pos = _select_alpha(st, cfg)
+    sel = torch.where(st.done[:, None], -1, sel)
+    safe = sel.clamp(0, n - 1).long()
+    valid = sel >= 0
+    sel_alive = valid & swarm.alive[safe]
+    solicit = torch.where(sel_alive, sel, -1)
+    resp, resp_d0, answered = _respond(swarm, cfg, st.targets, solicit,
+                                       sel_d0)
+    a = sel.shape[1]
+    k2 = resp.shape[1] // a
+    if swarm.byzantine is not None:
+        byz_rep = (sel_alive & swarm.byzantine[safe] & answered
+                   ).repeat_interleave(k2, dim=1)              # [L, A·2K]
+        slot = torch.arange(a * k2, device=sel.device)[None, :]
+        h = _fault_hash((safe.repeat_interleave(k2, dim=1) + slot * 7919)
+                        & MASK32, t0[:, None], rnd, faults.seed ^ 0x517CC1B7)
+        if faults.eclipse:
+            pool, n_byz = (byz_aux if byz_aux is not None
+                           else byz_colluder_pool(swarm.byzantine))
+            p_idx = pool[h % n_byz]
+        else:
+            p_idx = (h % n).to(torch.int32)
+        p_d0 = _fault_hash(h, t0[:, None], rnd,
+                           faults.seed ^ 0x27220A95) >> 17
+        resp = torch.where(byz_rep, p_idx, resp)
+        resp_d0 = torch.where(byz_rep, p_d0, resp_d0)
+
+    if faults.drop_frac:
+        # Only delivered replies can be lost; u32(f · (2^32 - 1)),
+        # truncated, as the JAX engine's threshold.
+        thresh = int(min(1.0, faults.drop_frac) * 4294967295.0)
+        dropm = sel_alive & answered & (
+            _fault_hash(safe, t0[:, None], rnd, faults.seed) <= thresh)
+        answered = answered & ~dropm
+        drop_rep = dropm.repeat_interleave(k2, dim=1)
+        resp = torch.where(drop_rep, -1, resp)
+        resp_d0 = torch.where(drop_rep, U32_MAX, resp_d0)
+    else:
+        dropm = torch.zeros_like(valid)
+
+    if faults.defend:
+        c_safe = resp.clamp(0, n - 1).long()
+        exact_d0 = swarm.ids[:, 0][c_safe] ^ t0[:, None]
+        contradicted = (resp >= 0) & ((resp_d0 >> 16) != (exact_d0 >> 16))
+        bad = contradicted | ((resp >= 0) & blk[c_safe])
+        resp = torch.where(bad, -1, resp)
+        resp_d0 = torch.where(bad, U32_MAX, resp_d0)
+        malformed = contradicted.view(-1, a, k2).any(dim=2)
+        poison_ct = contradicted.sum().to(torch.int32)
+    else:
+        malformed = torch.zeros_like(valid)
+        poison_ct = 0
+
+    q_hit = valid & sel_alive & answered
+    merge_args = (*fold_solicitations(st.idx, st.dist, st.queried, sel_pos,
+                                      q_hit, valid & ~sel_alive),
+                  resp, resp_d0)
+    return st, sel, q_hit, merge_args, (q_hit & ~malformed, dropm,
+                                        malformed, poison_ct)
+
+
+def chaos_step_impl(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
+                    st: LookupState, strikes: torch.Tensor, rnd: int,
+                    byz_aux=None, trace: LookupTrace | None = None,
+                    done_base: int = 0):
+    """One adversarial round: :func:`chaos_round_inputs`, the shared
+    round tail (:func:`_merge_round`, K1 on the card), then the strike
+    accounting — a clean answer clears the responder's strikes, an
+    all-silent round adds one, and every poisoned reply adds one (so
+    one round's events merge in any order).  Returns ``(state,
+    strikes)``, or ``(state, strikes, trace)`` with a trace (its
+    ``poison``, ``strikes`` and ``convictions`` rows filled here)."""
+    st, sel, q_hit, merge_args, outcome = chaos_round_inputs(
+        swarm, cfg, faults, st, strikes, rnd, byz_aux)
+    succ, dropm, malformed, poison_ct = outcome
+    new_st = _merge_round(st, cfg, sel, q_hit, merge_args, trace=trace,
+                          rnd=rnd, done_base=done_base)
+    traced = trace is not None and rnd < trace.poison.shape[0]
+    if trace is not None:
+        new_st, trace = new_st
+        if traced:
+            trace.poison[rnd] += poison_ct
+    if not faults.defend:
+        return (new_st, strikes) if trace is None else (new_st, strikes,
+                                                        trace)
+    n = cfg.n_nodes
+    succ_ct = _count_at(sel, succ, n)
+    drop_ct = _count_at(sel, dropm, n)
+    lie_ct = _count_at(sel, malformed, n)
+    new_strikes = torch.where(succ_ct > 0, 0,
+                              strikes + drop_ct.clamp(max=1)) + lie_ct
+    if trace is None:
+        return new_st, new_strikes
+    if traced:
+        trace.strikes[rnd] += (new_strikes - strikes).clamp(min=0).sum(
+            ).to(torch.int32)
+        trace.convictions[rnd] = (new_strikes >= faults.strike_limit).sum(
+            ).to(torch.int32)
+    return new_st, new_strikes, trace
+
+
+def chaos_lookup_init(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
+                      origins: torch.Tensor) -> LookupState:
+    """The chaos engine's seed exchange: the origin's own routing table,
+    trusted, so no fault touches it — :func:`lookup_init`."""
+    return lookup_init(swarm, cfg, targets, origins)
+
+
+def chaos_lookup_step(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
+                      st: LookupState, strikes: torch.Tensor, rnd: int,
+                      byz_aux=None, trace: LookupTrace | None = None):
+    """One adversarial round (:func:`chaos_step_impl`)."""
+    return chaos_step_impl(swarm, cfg, faults, st, strikes, rnd,
+                           byz_aux=byz_aux, trace=trace)
+
+
+def chaos_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
+                 generator: torch.Generator | None = None,
+                 faults: LookupFaults = LookupFaults(), *,
+                 origins: torch.Tensor | None = None,
+                 collect_trace: bool = False, compact: bool = True,
+                 stats: dict | None = None, track_lifecycle: bool = False,
+                 device=None):
+    """Run a batch of lookups to completion under the adversarial fault
+    model (Byzantine responders, reply loss) with the strike/blacklist
+    defence.
+
+    The round index is the fault stream's round coordinate.  Origins
+    are ``origins`` if given, else honest alive nodes drawn with
+    ``generator`` (seeded 0 if omitted).  Returns ``(LookupResult,
+    strikes [N] int32)`` — ``strikes >= faults.strike_limit`` is the
+    conviction mask — or, with ``collect_trace``, ``(result, strikes,
+    LookupTrace)``.  ``compact`` (default) runs later rounds on the
+    pending rows only: every fault decision keys on (node, target,
+    round), never on a row's position, so the results are the same; rows
+    frozen outside the dispatched prefix miss the per-round blacklist
+    scrubs, which one deferred pass (:func:`_evict_blacklisted`, with the
+    strikes as of the last round's start) applies before the result is
+    read.  There is no merge-width ladder."""
+    dev = resolve_device(device)
+    _require_on(swarm, dev)
+    targets = targets.to(dev)
+    if origins is None:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        origins = _sample_origins(generator, _honest_alive(swarm),
+                                  targets.shape[0])
+    else:
+        origins = origins.to(dev)
+    st = chaos_lookup_init(swarm, cfg, targets, origins)
+    if track_lifecycle:
+        st = init_lifecycle(st)
+    strikes = torch.zeros((cfg.n_nodes,), dtype=torch.int32, device=dev)
+    byz_aux = (byz_colluder_pool(swarm.byzantine)
+               if faults.eclipse and swarm.byzantine is not None else None)
+    trace = empty_lookup_trace(cfg, dev) if collect_trace else None
+    if compact:
+        prev = {"strikes": strikes}
+
+        def step(s, ex, r, hidden, mw):
+            prev["strikes"] = ex[0]
+            out = chaos_step_impl(swarm, cfg, faults, s, ex[0], r, byz_aux,
+                                  trace=trace, done_base=hidden)
+            return out[0], tuple(out[1:])
+
+        st, extras, order = run_compacted_burst_loop(
+            step, st, cfg, extras=(strikes,), stats=stats)
+        strikes = extras[0]
+        _lifecycle_stats(st, order, stats, track_lifecycle)
+        if faults.defend:
+            st = _evict_blacklisted(
+                st, prev["strikes"] >= faults.strike_limit, cfg)
+        found, hops, done = _finalize_scattered(swarm.ids, st, order, cfg)
+    else:
+        st, strikes = run_burst_loop(
+            lambda c, r: chaos_step_impl(swarm, cfg, faults, c[0], c[1], r,
+                                         byz_aux, trace=trace)[:2],
+            (st, strikes), cfg, done_of=lambda c: c[0].done)
+        _lifecycle_stats(st, None, stats, track_lifecycle)
+        found, hops, done = _finalize(swarm.ids, st, cfg), st.hops, st.done
+    res = LookupResult(found=_censor_convicted(found, strikes, cfg, faults),
+                       hops=hops, done=done)
+    return (res, strikes, trace) if collect_trace else (res, strikes)
+
+
+def _evict_blacklisted(st: LookupState, blk: torch.Tensor,
+                       cfg: SwarmConfig) -> LookupState:
+    """One deferred blacklist eviction and re-sort over every row: the
+    scrubs that rows frozen by compaction missed.  Convictions are
+    permanent and the merge is deterministic on the surviving set, so
+    evicting once with the final blacklist and re-sorting once lands
+    the state the full-width engine reaches; rows dispatched through the
+    last round are unchanged."""
+    n = cfg.n_nodes
+    conv = (st.idx >= 0) & blk[st.idx.clamp(0, n - 1).long()]
+    f_idx, f_dist, f_q = merge_shortlists_d0(
+        torch.where(conv, U32_MAX, st.dist), torch.where(conv, -1, st.idx),
+        st.queried & ~conv, keep=cfg.search_width)
+    return st._replace(idx=f_idx, dist=f_dist, queried=f_q)
+
+
+def _censor_convicted(found: torch.Tensor, strikes: torch.Tensor,
+                      cfg: SwarmConfig, faults: LookupFaults) -> torch.Tensor:
+    """Convicted nodes out of the reported results (a conviction in the
+    last round would otherwise survive in a done lookup's head)."""
+    if not faults.defend:
+        return found
+    blk = strikes >= faults.strike_limit
+    hole = (found >= 0) & blk[found.clamp(0, cfg.n_nodes - 1).long()]
+    return torch.where(hole, -1, found)

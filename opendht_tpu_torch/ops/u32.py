@@ -64,3 +64,12 @@ def lexsort(keys: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
         _, p = torch.sort(k, dim=dim, stable=True)
         perm = p if perm is None else torch.gather(perm, dim, p)
     return perm
+
+
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for ``x`` in u32 range and a constant ``c``
+    in u32 range, without an int64 overflow: ``c`` is split into 16-bit
+    halves, so every partial product stays below ``2**48``."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32

@@ -471,3 +471,59 @@ def test_kernel_wrappers_reject_bad_input():
         kernels.fused_round(tables, f1[:, 0].long(), f1, f1.long(),
                             f1.bool(), z, z.long(), z, z, z.bool(), z.bool(),
                             bucket_k=8, quorum=8, keep=S)
+
+
+def _chaos_rounds(dev, eclipse, defend, drop, rounds=4, n=4096, l=1024):
+    """K1's inputs of the first ``rounds`` rounds of a chaos lookup on the
+    card (10 % Byzantine, 10 % dead): undefended rounds hand the merge
+    rows full of poisoned candidates claimed near zero (under eclipse,
+    colluder ids repeating across a row, dead ones among them);
+    defended ones rows whose rejected candidates became -1 / all-ones in
+    place, mid-row."""
+    from opendht_tpu_torch.models import swarm as sw
+    cfg = sw.SwarmConfig.for_nodes(n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    swarm = sw.build_swarm(cfg, gen, device=dev)
+    swarm = sw.churn(sw.corrupt_swarm(swarm, gen, 0.1, cfg), gen, 0.1, cfg)
+    faults = sw.LookupFaults(drop_frac=drop, eclipse=eclipse, seed=7,
+                             defend=defend)
+    tg = torch.randint(0, 2**32, (l, 5), generator=gen, device=dev)
+    origins = sw._sample_origins(gen, swarm.alive & ~swarm.byzantine, l)
+    st = sw.chaos_lookup_init(swarm, cfg, tg, origins)
+    strikes = torch.zeros((n,), dtype=torch.int32, device=dev)
+    aux = sw.byz_colluder_pool(swarm.byzantine) if eclipse else None
+    out = []
+    for r in range(rounds):
+        out.append(sw.chaos_round_inputs(swarm, cfg, faults, st, strikes, r,
+                                         aux)[3])
+        st, strikes = sw.chaos_lookup_step(swarm, cfg, faults, st, strikes,
+                                           r, aux)
+    return out
+
+
+CHAOS_ROUNDS = [("eclipse_undefended", True, False, 0.0),
+                ("random_undefended", False, False, 0.0),
+                ("eclipse_defended", True, True, 0.0),
+                ("random_defended_drop", False, True, 0.3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,eclipse,defend,drop", CHAOS_ROUNDS)
+def test_merge_round_kernel_on_chaos_rounds(name, eclipse, defend, drop):
+    """K1 against its plain version on four adversarial rounds each."""
+    dev = _need_card()
+    near_zero = holes = 0
+    for r, args in enumerate(_chaos_rounds(dev, eclipse, defend, drop)):
+        got = kernels.merge_round(*args, quorum=QUORUM, keep=S)
+        want = kernels.merge_round(*(a.cpu() for a in args), quorum=QUORUM,
+                                   keep=S)
+        torch.cuda.synchronize()
+        assert_same(want, got, f"K1 {name} round {r}")
+        ri, rd = args[3], args[4]
+        near_zero += int(((ri >= 0) & (rd < 2**15)).sum())
+        blocks = ri.view(ri.shape[0], -1, 8)
+        holes += int(((blocks < 0).any(-1) & (blocks >= 0).any(-1)).sum())
+    if defend:
+        assert holes > 0
+    else:
+        assert near_zero > 0
