@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's lookup engine, its chaos engine and its
-storage plane on one CUDA card and hold each of its CUDA kernels against
-its plain PyTorch version.
+"""Drive the PyTorch port's lookup engine, its chaos engine, its storage
+plane with chunked values and its serve engine on one CUDA card and hold
+each of its CUDA kernels against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with one NVIDIA card and
 the CUDA toolkit:
@@ -74,18 +74,52 @@ Phases (any failure exits non-zero and prints no result line):
    reaches holds the new value, and no other), then churn 0.25, a
    heal and ``republish_from`` over survivors holding at most 2,097,152
    values, with the replication before and after, launch counts and
-   peak memory.
+   peak memory; its 1 % forged puts come from the integrity plane's
+   ``content_ids`` and ``forge_payloads``;
+11. integrity, chunked values and the serve engine, card vs CPU at 4,096
+   nodes (run after phase 8): ``content_ids`` and ``forge_payloads``
+   from handed draws; every chunked function on one store (lengths 0 to
+   64 bytes, torn drop, a writer killed mid-parts, a torn overwrite, a
+   forged part read with verify on and off, listen / collect / ack /
+   cancel); the byte budget (new keys over budget, growing and
+   shrinking refreshes); ``serve_open_loop`` under a virtual clock with
+   the cache off, on, the ``shed`` policy under overload and
+   ``degrade`` (every report array and scalar, latencies included);
+   ``closed_loop_replay`` on both engines (equal to ``lookup``);
+12. the serve path at full width: ``closed_loop_replay`` of the main
+   path's 1,048,576 targets on both engines, equal to ``lookup`` from
+   the same origins; ``bench.py --mode serve``'s defaults (Poisson 2,000
+   req/s for 5 s, key pool 4,096, Zipf 1.1, seed 7, 2,048 slots, burst
+   2, real clock) on both engines — conservation, every answer a
+   non-empty found set, recall@8 of 512 served keys (K3), req/s, latency
+   quantiles, occupancy, rounds, per-layer host walls and the count of
+   synchronizing calls (one a burst) — a cache-on leg (4,096 slots), an
+   overload leg (20,000 req/s for 2 s, ``shed`` at 5,000 req/s a class)
+   and a signed leg through the ``SignatureStage`` (``bench.py --mode
+   auth``'s stage 3b: 300 req/s for 1 s, 256 slots); then K1 and K2
+   against their plain versions on the 2,048-row serve state as it was
+   before round 200 of the K1 leg;
+13. the chunked path at full width: ``bench.py --mode chunked``'s five
+   legs (clean, torn_drop, kill_mid, torn_overwrite, forge) on one
+   device with 1,048,576 values of 4 × 8 words, verify on and off, the
+   same routing in both arms — every torn row missing, no garbled row
+   defended, ``root_rejects`` — then churn 0.25 + heal and re-announce
+   sweeps.
 
 Prints the ``ptxas`` lines of every kernel (registers, shared memory,
 spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
-``kernel_times``, ``k3_times``, ``chaos_leg``, ``chaos_path`` and
-``storage_path`` lines, a ``kernels`` JSON line (each row with its
-launches on every path), the card line, and last
+``kernel_times``, ``k3_times``, ``chaos_leg``, ``chaos_path``,
+``storage_path``, ``serve_replay``, ``serve_leg``, ``serve_signed``,
+``serve_path``, ``serve_kernel_times`` and ``chunked_path`` lines, a
+``kernels`` JSON line (each row with its launches on every path, K1's
+and K2's with their times at the serve shape), the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
+import inspect
 import json
 import os
 import re
@@ -93,6 +127,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 N_NODES = 10_000_000
 N_LOOKUPS = 1 << 20
@@ -813,6 +848,43 @@ def profile_lookup(sw, swarm, cfg, targets, gen, top: int = 14) -> dict:
             "top_kernels_ms": [[n[:90], ms] for n, ms in ranked]}
 
 
+def profile_serve(sv, swarm, cfg, sched, top: int = 10) -> dict:
+    """One second of open-loop serving (2,048 slots, real clock) under
+    ``torch.profiler``: the device's busy share of the wall, kernel
+    launches a burst and device time by kernel (top ``top``).  The
+    profiler's host cost slows the loop, so its latencies are not the
+    serve legs'."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ts_, keys, klass = sched
+    eng = sv.ServeEngine(swarm, cfg, slots=2048)
+    sv.warm_serve_engine(eng)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = sv.serve_open_loop(
+            eng, ts_, keys, torch.Generator(device=swarm.ids.device)
+            .manual_seed(3), klass=klass)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels_ms, launches = {}, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            launches += 1
+            kernels_ms[ev.name] = (kernels_ms.get(ev.name, 0.0)
+                                   + ev.time_range.elapsed_us() / 1e3)
+    busy = sum(kernels_ms.values())
+    bursts = len(rep["burst_marks"]) - 1
+    ranked = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms if wall_ms else None,
+            "device_launches": launches, "bursts": bursts,
+            "device_launches_per_burst": launches / max(1, bursts),
+            "top_kernels_ms": [[n[:90], ms] for n, ms in ranked]}
+
+
 def layer_times(sw, swarm, cfg, targets, gen) -> dict:
     """Milliseconds of each layer of one main-path lookup, timed alone
     with CUDA events at the main path's shapes: origin sampling, init,
@@ -1133,15 +1205,17 @@ def chaos_layer_times(sw, s, cfg, st, strikes, aux, merge_args) -> dict:
 
 def phase_storage_full(sw, swarm, cfg_f, card, failures):
     """The storage plane on the main path's swarm with the fused engine
-    (K2): 1,048,576 content-addressed values (1 % forged) announced and
+    (K2): 1,048,576 content-addressed values (1 % forged by
+    ``forge_payloads``: one payload bit flipped) announced and
     read back, 1,024 listeners and a seq-2 re-announce of their keys, then
     ``churn(0.25)``, a heal and ``republish_from`` over survivors holding
     at most 2,097,152 values.  Returns the storage path's launch
     counts."""
     import torch
     from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.models.integrity import (content_ids,
+                                                    forge_payloads)
     from opendht_tpu_torch.ops import kernels
-    from opendht_tpu_torch.ops.sha1 import sha1_words
 
     dev = swarm.ids.device
     n = swarm.ids.shape[0]
@@ -1150,13 +1224,14 @@ def phase_storage_full(sw, swarm, cfg_f, card, failures):
                            payload_words=8, verify=True)
     gen = torch.Generator(device=dev).manual_seed(50)
     pl = torch.randint(0, 2**32, (p, 8), generator=gen, device=dev)
-    keys = sha1_words(pl)
-    forged = torch.rand((p,), generator=gen, device=dev) < 0.01
-    keys[:, 4] ^= forged.to(torch.int64)
+    keys = content_ids(pl)
+    # 1 % of the puts carry a payload with one bit flipped under the
+    # honest key (the integrity plane's forgery).
+    put_pl, forged = forge_payloads(pl, flip_frac=0.01, generator=gen)
     vals = torch.arange(1, p + 1, device=dev)
     put_origins = sw._sample_origins(gen, swarm.alive, p)
     t0 = time.perf_counter()
-    sha1_words(pl)
+    content_ids(pl)
     torch.cuda.synchronize()
     sha1_s = time.perf_counter() - t0
     # The forged requests that reach a live replica: the same lookup as
@@ -1175,7 +1250,7 @@ def phase_storage_full(sw, swarm, cfg_f, card, failures):
     store = stg.empty_store(n, scfg)
     t0 = time.perf_counter()
     store, rep = stg.announce(swarm, cfg_f, store, scfg, keys, vals,
-                              torch.ones_like(vals), 1, payloads=pl,
+                              torch.ones_like(vals), 1, payloads=put_pl,
                               origins=put_origins)
     torch.cuda.synchronize()
     put_s = time.perf_counter() - t0
@@ -1297,6 +1372,734 @@ def phase_storage_full(sw, swarm, cfg_f, card, failures):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# integrity, chunked values and the serve engine
+# ---------------------------------------------------------------------------
+
+def virtual_clock(step: float = 0.002):
+    """A deterministic ``(clock, sleep)`` pair: every ``clock()`` read
+    advances time by ``step``, ``sleep`` by its argument, so a serve loop
+    is a pure function of its schedule (and a card run equals a CPU
+    run, latencies included)."""
+    t = [0.0]
+
+    def clock():
+        t[0] += step
+        return t[0]
+
+    def sleep(s):
+        t[0] += s
+
+    return clock, sleep
+
+
+def same_report(a: dict, b: dict) -> bool:
+    """Every key of two serve reports equal, arrays and floats exactly,
+    but the host walls (``layer_walls_s``: not a function of the
+    schedule)."""
+    import numpy as np
+    if set(a) != set(b):
+        return False
+    for k in set(a) - {"layer_walls_s"}:
+        x, y = a[k], b[k]
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def serve_summary(rep: dict) -> dict:
+    """The headline numbers of a serve report."""
+    import numpy as np
+    lat = rep["latency_s"]
+    q = (np.percentile(lat, [50, 95, 99]).tolist() if len(lat)
+         else [None] * 3)
+    keys = ("admitted", "completed", "expired", "in_flight", "shed",
+            "never_admitted", "cache_hits", "cache_misses", "degraded_hits",
+            "rounds", "elapsed_s", "sustained_rps", "slot_occupancy_frac",
+            "queue_depth_mean", "queue_depth_max", "sig_submitted")
+    out = {k: rep[k] for k in keys}
+    out.update(p50_latency_s=q[0], p95_latency_s=q[1], p99_latency_s=q[2],
+               mean_service_rounds=(float(rep["service_rounds"].mean())
+                                    if len(lat) else None))
+    return out
+
+
+def conserved(rep: dict) -> bool:
+    return rep["admitted"] == (rep["completed"] + rep["in_flight"]
+                               + rep["expired"])
+
+
+def phase_serve_chunked_card_vs_cpu(dev, failures) -> None:
+    """Integrity, chunked values, the byte budget and the serve engine,
+    card vs CPU at 4,096 nodes: every output equal (the serve reports
+    under a virtual clock, latencies included)."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import chunked_values as cv
+    from opendht_tpu_torch.models import integrity as ig
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.models import swarm as sw
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 4096
+    cfg = sw.SwarmConfig.for_nodes(n, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    base = sw.churn(sw.build_swarm(cfg, gen, device="cpu"), gen, 0.1, cfg)
+
+    def check(what, cpu_out, card_out, detail=""):
+        same = same_tensors(cpu_out, card_out)
+        log(f"{what} card vs CPU, {n} nodes: "
+            f"{'bit-equal' if same else 'DIFFERENT'}{detail}")
+        if not same:
+            failures.append(f"card and CPU differ: {what}")
+
+    # Integrity: content ids and forged payloads from handed draws.
+    p = 512
+    pl = torch.randint(0, 2**32, (p, 8), generator=gen)
+    draws = (torch.rand((p,), generator=gen) < 0.3,
+             torch.randint(0, 8, (p,), generator=gen),
+             torch.randint(0, 32, (p,), generator=gen))
+    outs = {d: (ig.content_ids(pl.to(d)),
+                ig.forge_payloads(pl.to(d), *(x.to(d) for x in draws)))
+            for d in ("cpu", dev)}
+    host_ok = bool((torch.from_numpy(ig.content_ids_host(pl).astype(np.int64))
+                    == outs["cpu"][0]).all())
+    check("content_ids + forge_payloads", outs["cpu"], outs[dev],
+          f" (hashlib equal: {host_ok}; {int(draws[0].sum())} forged rows)")
+    if not host_ok:
+        failures.append("content_ids differs from hashlib")
+
+    # Chunked values: every function on one store.
+    parts, w, pc = 4, 4, 512
+    scfg = stg.StoreConfig(slots=16, listen_slots=8, max_listeners=256,
+                           payload_words=w, verify=True)
+    scfg_u = scfg._replace(verify=False)
+    pls = torch.randint(0, 2**32, (pc, parts, w), generator=gen)
+    lens = torch.randint(1, parts * w * 4 + 1, (pc,), generator=gen)
+    lens[:5] = torch.tensor([0, 3, w * 4, parts * w * 4, parts * w * 4 + 7])
+    keys = cv.chunked_content_ids(pls, lens)
+    vals = torch.arange(1, pc + 1)
+    drop = torch.zeros((pc, parts), dtype=torch.bool)
+    drop[:, 0] = torch.rand((pc,), generator=gen) < 0.25
+    drop[:, 2] = torch.rand((pc,), generator=gen) < 0.25
+    forged = pls.clone()
+    forged[:, 1, 0] ^= 1 << 31
+    regs = torch.arange(64, dtype=torch.int32)
+    world = {"cpu": [base, stg.empty_store(n, scfg, device="cpu")],
+             "card": [base.to(dev), stg.empty_store(n, scfg, device=dev)]}
+
+    def o(rows=pc):
+        return sw._sample_origins(gen, base.alive, rows)
+
+    def put(seq, now, data=pls, **kw):
+        return lambda w_, d, og: cv.announce_chunked(
+            w_[0], cfg, w_[1], scfg, keys.to(d), vals.to(d),
+            torch.full((pc,), seq, device=d), now, None, data.to(d),
+            lens.to(d), origins=og, device=d, **kw)
+
+    def get(sc=scfg):
+        return lambda w_, d, og: (w_[1], cv.get_chunked(
+            w_[0], cfg, w_[1], sc, keys.to(d), None, parts, origins=og,
+            device=d))
+
+    def collect(w_, d, og):
+        return (w_[1], cv.collect_chunked(w_[1], scfg, regs.to(d), parts,
+                                          keys[:64].to(d)))
+
+    steps = [
+        ("announce (lengths 0..64 bytes)", put(1, 0), o()),
+        ("get, verify on", get(), o()),
+        ("get, verify off", get(scfg_u), o()),
+        ("listen_chunked", lambda w_, d, og: cv.listen_chunked(
+            w_[0], cfg, w_[1], scfg, keys[:64].to(d), regs.to(d), None,
+            parts, now=1, origins=og, device=d), o(64)),
+        ("torn drop (seq 2, parts 0 and 2 dropped)",
+         put(2, 2, part_drop_mask=drop), o()),
+        ("collect_chunked", collect, None),
+        ("ack_chunked", lambda w_, d, og: (
+            cv.ack_chunked(w_[1], regs[:32].to(d), parts),), None),
+        ("writer killed mid-parts (seq 3)", put(3, 3, part_range=(0, 2)),
+         o()),
+        ("get after the torn writes", get(), o()),
+        ("torn overwrite (seq 4, part 0 only)", put(4, 4, part_range=(0, 1)),
+         o()),
+        ("forged part 1 (seq 5)", put(5, 5, data=forged), o()),
+        ("get forged, verify on", get(), o()),
+        ("get forged, verify off", get(scfg_u), o()),
+        ("collect after the forged delivery", collect, None),
+        ("cancel_chunked", lambda w_, d, og: (
+            cv.cancel_chunked(w_[1], scfg, regs[:16].to(d), parts),), None),
+    ]
+    for name, fn, og in steps:
+        outs = {}
+        for where, w_ in world.items():
+            d = "cpu" if where == "cpu" else dev
+            out = fn(w_, d, None if og is None else og.to(d))
+            w_[1] = out[0]
+            outs[where] = out
+        check(f"chunked {name}", outs["cpu"], outs["card"],
+              " (every store field and output)")
+
+    # The byte budget: new keys over budget, growing refreshes.
+    scfg_b = stg.StoreConfig(slots=4, listen_slots=2, max_listeners=64,
+                             budget=40, payload_words=2)
+    pb = 512
+    bkeys = torch.randint(0, 2**32, (pb, 5), generator=gen)
+    bpl = torch.randint(0, 2**32, (pb, 2), generator=gen)
+    budget = {"cpu": [base, stg.empty_store(n, scfg_b, device="cpu")],
+              "card": [base.to(dev), stg.empty_store(n, scfg_b, device=dev)]}
+    for name, seq, sizes in (
+            ("announce", 1, torch.randint(1, 31, (pb,), generator=gen)),
+            ("growing refresh", 2, torch.randint(1, 41, (pb,), generator=gen)),
+            ("shrinking refresh", 3,
+             torch.randint(1, 6, (pb,), generator=gen))):
+        og = o(pb)
+        outs = {}
+        for where, w_ in budget.items():
+            d = "cpu" if where == "cpu" else dev
+            w_[1], rep = stg.announce(
+                w_[0], cfg, w_[1], scfg_b, bkeys.to(d),
+                torch.arange(1, pb + 1, device=d),
+                torch.full((pb,), seq, device=d), seq, sizes=sizes.to(d),
+                payloads=bpl.to(d), origins=og.to(d), device=d)
+            outs[where] = (w_[1], rep)
+        tr = outs["cpu"][1].trace.to_dict()
+        check(f"byte budget 40, {name}", outs["cpu"], outs["card"],
+              f" (store and trace: {tr})")
+    stored = torch.where(budget["cpu"][1].used, budget["cpu"][1].sizes,
+                         0).sum(dim=1)
+    if int(stored.max()) > 40:
+        failures.append("byte budget exceeded on the CPU store")
+
+    # The serve engine under a virtual clock, four forms, and the replay.
+    a_cap, slots = 64, 256
+    memo = {}
+
+    def origins_of(i):
+        if i not in memo:
+            memo[i] = sw._sample_origins(
+                torch.Generator().manual_seed(1000 + i), base.alive, a_cap)
+        return memo[i]
+
+    sched = sv.poisson_zipf_events(2000.0, 0.5, 256, 1.1, seed=7)
+    burst_sched = sv.poisson_zipf_events(20000.0, 0.2, 256, 1.1, seed=8)
+    forms = {
+        "cache off": dict(),
+        "cache on (512 slots)": dict(cache_slots=512),
+        "shed under overload": dict(
+            sched=burst_sched, overload_queue_factor=1,
+            admission=lambda: sv.AdmissionControl(rate=3000, policy="shed")),
+        "degrade": dict(cache_slots=512, admission=lambda: sv.AdmissionControl(
+            rate=800, burst=50, policy="degrade")),
+    }
+    for name, kw in forms.items():
+        kw = dict(kw)
+        s_ts, s_keys, s_klass = kw.pop("sched", sched)
+        adm = kw.pop("admission", None)
+        cs = kw.pop("cache_slots", 0)
+        reps, caches = {}, {}
+        for where, sw_ in (("cpu", base), ("card", base.to(dev))):
+            d = "cpu" if where == "cpu" else dev
+            eng = sv.ServeEngine(sw_, cfg, slots=slots, admit_cap=a_cap,
+                                 cache_slots=cs, device=d)
+            clock, sleep = virtual_clock()
+            reps[where] = sv.serve_open_loop(
+                eng, s_ts, s_keys, klass=s_klass, clock=clock, sleep=sleep,
+                admission=adm() if adm else None, origins_of=origins_of,
+                **kw)
+            caches[where] = eng.cache
+        same = (same_report(reps["cpu"], reps["card"])
+                and same_tensors(caches["cpu"], caches["card"]))
+        r = reps["cpu"]
+        log(f"serve_open_loop card vs CPU, {n} nodes, {name}: "
+            f"{'equal' if same else 'DIFFERENT'} (every report array and "
+            f"scalar, virtual clock; admitted {r['admitted']}, completed "
+            f"{r['completed']}, shed {r['shed']}, cache hits "
+            f"{r['cache_hits']}, degraded {r['degraded_hits']}, rounds "
+            f"{r['rounds']})")
+        if not same:
+            failures.append(f"card and CPU serve reports differ ({name})")
+        if not conserved(r) or not r["found_nonempty"].all():
+            failures.append(f"serve at {n} nodes ({name}): conservation or "
+                            f"an empty answer")
+    tg = torch.randint(0, 2**32, (256, 5), generator=gen)
+    og = o(256)
+    for impl in ("auto", "fused-round"):
+        c = cfg._replace(merge_impl=impl)
+        outs = {where: sv.closed_loop_replay(
+            sw_, c, tg.to(d), origins=og.to(d), device=d)
+            for where, sw_, d in (("cpu", base, "cpu"),
+                                  ("card", base.to(dev), dev))}
+        look = sw.lookup(base, c, tg, origins=og, device="cpu")
+        check(f"closed_loop_replay ({impl})", outs["cpu"], outs["card"],
+              f" (result and final state; equals lookup: "
+              f"{same_tensors(look, outs['cpu'][0])})")
+        if not same_tensors(look, outs["cpu"][0]):
+            failures.append(f"closed_loop_replay differs from lookup ({impl})")
+    log(f"integrity, chunked and serve card vs CPU: peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
+
+def phase_serve_full(sw, swarm, cfg, targets, origins, res, card, failures):
+    """The serve path on the main swarm: ``closed_loop_replay`` of the
+    main path's targets on both engines (equal to ``lookup`` from the
+    same origins), then ``bench.py --mode serve``'s defaults (Poisson
+    2,000 req/s for 5 s, key pool 4,096, Zipf 1.1, seed 7, 2,048 slots,
+    burst 2, real clock) on both engines, a cache-on leg, an overload leg
+    (20,000 req/s, shed) and ``bench.py --mode auth``'s signed serve leg
+    (stage 3b).  Then K1 and K2 against their
+    plain versions on a mid-run serve state.  Returns the serve path's
+    launch counts and the kernels' serve-shape times."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import integrity as ig
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.ops import kernels
+
+    dev = swarm.ids.device
+    cfg_f = cfg._replace(merge_impl="fused-round")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    replay = {}
+    for impl, c in (("auto", cfg), ("fused-round", cfg_f)):
+        t0 = time.perf_counter()
+        rr, st = sv.closed_loop_replay(swarm, c, targets, origins=origins)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(rr, res))
+        replay[impl] = {"wall_s": wall, "lookups_per_s": targets.shape[0]
+                        / wall, "equals_lookup": same,
+                        "max_completed_round": int(st.completed_round.max())}
+        if not same:
+            failures.append(f"closed_loop_replay ({impl}) differs from "
+                            f"lookup at full width")
+        del rr, st
+    log("serve_replay " + json.dumps({"n_lookups": targets.shape[0],
+                                      **replay, "card": card}))
+
+    capture_round = 200
+
+    class Engine(sv.ServeEngine):
+        """Keeps a copy of its state as it was just before round
+        ``capture_round``'s step (about a hundred bursts into a leg:
+        the occupancy has settled)."""
+        captured = None
+
+        def step(self, st, rnd):
+            if rnd == capture_round and self.captured is None:
+                self.captured = type(st)(*[None if x is None else x.clone()
+                                           for x in st])
+            return super().step(st, rnd)
+
+    ts_, keys, klass = sv.poisson_zipf_events(2000.0, 5.0, 4096, 1.1, seed=7)
+    keys_t = torch.from_numpy(keys.astype(np.int64)).to(dev)
+    legs, captured = {}, None
+
+    def leg(name, c, sched=(ts_, keys, klass), cache_slots=0,
+            admission=None, recall=True, slots=2048, duration=None, **kw):
+        nonlocal captured
+        s_ts, s_keys, s_klass = sched
+        eng = Engine(swarm, c, slots=slots, cache_slots=cache_slots)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        # Count the loop's synchronizing CUDA calls (the device-to-host
+        # reads): with the cache off there must be one a burst and one in
+        # the warm pass — the JAX loop's sync points and no others.
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rep = sv.serve_open_loop(
+                    eng, s_ts, s_keys, gen, klass=s_klass, burst=2,
+                    duration=duration or float(s_ts[-1]) + 1e-9,
+                    admission=admission, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        lines, first = inspect.getsourcelines(sv._fetch)
+        in_fetch = sum(os.path.samefile(w.filename, sv.__file__)
+                       and first <= w.lineno < first + len(lines)
+                       for w in syncs)
+        sites = collections.Counter(
+            f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs)
+        bursts = len(rep["burst_marks"]) - 1
+        out = {"engine": c.merge_impl, "cache_slots": cache_slots,
+               "admission": admission.policy if admission else None,
+               "requests": len(s_ts), **serve_summary(rep),
+               "layer_walls_s": rep["layer_walls_s"],
+               "host_syncs": len(syncs),
+               "host_syncs_in_readback": in_fetch,
+               "host_sync_sites": dict(sites), "bursts": bursts}
+        # With the cache off the readbacks are the snapshots: one a burst
+        # and one in the warm pass; any other synchronizing call must be
+        # a one-off (a first pinned-memory or device allocation), not one
+        # an iteration.
+        if not cache_slots and (in_fetch != bursts + 1
+                                or len(syncs) - in_fetch > 4):
+            failures.append(f"serve leg {name}: {len(syncs)} synchronizing "
+                            f"calls ({in_fetch} readbacks) for {bursts} "
+                            f"bursts: {dict(sites)}")
+        if cache_slots:
+            out["cache_hit_frac"] = rep["cache_hits"] / max(1,
+                                                            rep["admitted"])
+        # Every completion answers with a non-empty found set.  Its head
+        # (JAX's ``found_nonempty``) may rarely be -1 at 10M nodes, in the
+        # batch engine too: the exact re-sort at finalize can rank an
+        # unqueried shortlist entry (ordered by a 16-bit surrogate)
+        # first.  Those are counted.  tests/test_torch_serve.py::
+        # test_unqueried_head_reads_empty shows JAX's finalize and serve
+        # report doing the same.
+        out["found_head_empty"] = int((~rep["found_nonempty"]).sum())
+        out["found_set_empty"] = int((rep["found"] < 0).all(1).sum())
+        ok = (conserved(rep) and len(rep["found"]) == rep["completed"]
+              and out["found_set_empty"] == 0)
+        if recall and rep["completed"]:
+            first = np.argsort(rep["request"], kind="stable")[:N_RECALL]
+            sample = rep["request"][first]
+            found = torch.from_numpy(rep["found"][first]).to(dev)
+            tk = torch.from_numpy(s_keys[sample].astype(np.int64)).to(dev)
+            truth = sw.true_closest(swarm, c, tk)
+            out["recall_at_8"] = recall_at(truth, found)
+            out["recall_sample"] = len(sample)
+            if out["recall_at_8"] < 0.99:
+                failures.append(f"serve leg {name}: recall@8 "
+                                f"{out['recall_at_8']}")
+        if not ok:
+            failures.append(f"serve leg {name}: admitted != completed + "
+                            f"in_flight + expired, or an empty found set")
+        if eng.captured is not None and captured is None:
+            captured = eng.captured
+        legs[name] = out
+        log("serve_leg " + json.dumps({"leg": name, **out, "card": card}))
+        return rep
+
+    leg("k1_engine", cfg)
+    leg("fused_engine", cfg_f)
+    leg("cache_on", cfg, cache_slots=4096)
+    over = sv.poisson_zipf_events(20000.0, 2.0, 4096, 1.1, seed=8)
+    rep = leg("overload_shed", cfg, sched=over,
+              admission=sv.AdmissionControl(rate=5000, policy="shed"))
+    if rep["shed"] <= 0:
+        failures.append("the overload leg shed nothing")
+    if rep["admitted"] + rep["shed"] + rep["never_admitted"] != len(over[0]):
+        failures.append("the overload leg lost requests")
+    # bench.py --mode auth's stage 3b: 300 req/s for 1 s over a pool of
+    # min(4,096, 512) keys, Zipf 1.1, seed 7, a quarter of the requests
+    # signed (default_rng(9)), 256 slots, 256 signed values.
+    values, _ident = ig.make_signed_values(256)
+    sig = sv.poisson_zipf_events(300.0, 1.0, 512, 1.1, seed=7)
+    signed = np.random.default_rng(9).random(len(sig[0])) < 0.25
+    stage = ig.SignatureStage()
+    rep = leg("signed", cfg, sched=sig, recall=False, slots=256,
+              duration=1.0, sig_stage=stage, signed=signed,
+              signed_value_of=((lambda ri: values[ri % len(values)])
+                               if values else None))
+    st_sig = stage.drain()
+    log("serve_signed " + json.dumps({"signature_stage": st_sig,
+                                      "have_crypto": ig.HAVE_CRYPTO,
+                                      "card": card}))
+    if st_sig["submitted"] != rep["sig_submitted"] or (
+            st_sig["available"]
+            and st_sig["verified"] != st_sig["submitted"]):
+        failures.append(f"signature stage: {st_sig}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("serve_path " + json.dumps({"launches": launches,
+                                    "peak_memory_bytes": peak,
+                                    "card": card}))
+    for k_name in ("merge_round", "fused_round", "nearest_k_ids"):
+        if launches[k_name] <= 0:
+            failures.append(f"{k_name} was not launched on the serve path")
+    short = sv.poisson_zipf_events(2000.0, 1.0, 4096, 1.1, seed=10)
+    for name, c in (("k1_engine", cfg), ("fused_engine", cfg_f)):
+        log("serve_profile " + json.dumps({
+            "leg": name, **profile_serve(sv, swarm, c, short),
+            "card": card}))
+
+    # K1 and K2 on a real mid-run serve state (2,048 slots).
+    st = captured
+    if st is None:
+        failures.append("no serve leg reached the capture round")
+        return launches, {}
+    r = capture_round
+    adm = st.admitted_round
+    comp = {"rows": int(adm.shape[0]),
+            "never_admitted": int((adm < 0).sum()),
+            "done_rows": int(st.done.sum()),
+            "pending_rows": int((~st.done).sum()),
+            "pending_admitted_this_round": int(((~st.done) & (adm == r)
+                                                ).sum()),
+            "pending_oldest_age_rounds": int(torch.where(
+                ~st.done, r - adm, 0).max()),
+            "done_rows_all_empty_shortlist": int(
+                (st.done & (st.idx < 0).all(dim=1)).sum())}
+    _, _, m_args = sw.round_inputs(swarm, cfg, st)
+    _, f_args = sw.fused_round_inputs(swarm, cfg_f, st)
+    k1 = time_k1(m_args, cfg, 1 << 17)
+    k2 = time_k2(f_args, cfg_f, 1 << 17)
+    times = {"state_round": r, "state": comp,
+             "k1_ms": k1[0], "k1_plain_ms": k1[1], "k1_max_abs_err": k1[2],
+             "k1_bound_ms": k1[3], "k1_bound_by": k1[4],
+             "k2_ms": k2[0], "k2_plain_ms": k2[1], "k2_max_abs_err": k2[2],
+             "k2_bound_ms": k2[3], "k2_bound_by": k2[4], "card": card}
+    log("serve_kernel_times " + json.dumps(times))
+    for kn, err in (("K1", k1[2]), ("K2", k2[2])):
+        if err:
+            failures.append(f"{kn} disagrees with its plain version on a "
+                            f"serve state (err {err})")
+    if comp["pending_rows"] == 0 or comp["done_rows"] == 0:
+        failures.append(f"the captured serve state is not mid-run: {comp}")
+    del st, m_args, f_args, keys_t
+    return launches, {"merge_round": k1, "fused_round": k2}
+
+
+def phase_chunked_full(sw, swarm, cfg_f, card, failures):
+    """``bench.py --mode chunked``'s legs on one device at full width:
+    1,048,576 hash-list values of 4 parts × 8 words (one zero-length,
+    one of 3 bytes, two spanning every part) with
+    ``StoreConfig(slots=16, payload_words=8)``, verify on (defended) and
+    off (undefended), five legs an arm — clean, torn_drop (25 % lose
+    part 0), kill_mid (parts from 2 on never sent), torn_overwrite (a
+    seq-2 overwrite killed after part 0) and forge (part 1's first word
+    flipped at seq 3) — each on a fresh store with the same routing in
+    both arms; then the heal leg: churn 0.25 + heal and re-announce
+    sweeps over the torn_drop store.  Returns the chunked path's launch
+    counts."""
+    import torch
+    from opendht_tpu_torch.models import chunked_values as cv
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.ops import kernels
+
+    dev = swarm.ids.device
+    n = swarm.ids.shape[0]
+    p, parts, w = N_LOOKUPS, 4, 8
+    kp, fp = parts // 2, 1
+    base = dict(slots=16, listen_slots=2, max_listeners=64, payload_words=w)
+    scfg_v = stg.StoreConfig(verify=True, **base)
+    scfg_u = stg.StoreConfig(verify=False, **base)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    pls = torch.randint(0, 2**32, (p, parts, w), generator=gen, device=dev)
+    lens = torch.randint(1, 4 * parts * w + 1, (p,), generator=gen,
+                         device=dev)
+    lens[0], lens[1], lens[2:4] = 0, 3, 4 * parts * w
+    keys = cv.chunked_content_ids(pls, lens)
+    digest_parity = bool((torch.from_numpy(cv.chunked_content_ids_host(
+        pls[:4096], lens[:4096]).astype("int64")).to(dev)
+        == keys[:4096]).all())
+    vals = torch.arange(1, p + 1, device=dev)
+    seqs = torch.ones((p,), dtype=torch.int64, device=dev)
+    oracle = cv.mask_chunk_payloads(pls, lens)[0].reshape(p, parts * w)
+    words = (lens + 3) // 4
+    n_parts_of = (-(-words // w)).clamp(1, parts)
+    tdrop = torch.rand((p,), generator=gen, device=dev) < 0.25
+    drop_mask = torch.zeros((p, parts), dtype=torch.bool, device=dev)
+    drop_mask[:, 0] = tdrop
+    kill_rows = n_parts_of > kp
+    torn_rows = n_parts_of > 1
+    forge_rows = words > fp * w
+    forged = pls.clone()
+    forged[:, fp, 0] ^= 0x80000000
+    origin_seeds = {}
+
+    def og(seed):
+        if seed not in origin_seeds:
+            origin_seeds[seed] = sw._sample_origins(
+                torch.Generator(device=dev).manual_seed(seed), swarm.alive,
+                p)
+        return origin_seeds[seed]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+
+    def measure(res):
+        hit = res.hit
+        exact = hit & (res.length == lens) & (res.payload == oracle).all(1)
+        h, e = int(hit.sum()), int(exact.sum())
+        return hit, {"hit": h, "missing": p - h, "garbled": h - e,
+                     "exact": e}
+
+    def tsum(*trs):
+        return {k: sum(t[k] for t in trs) for k in trs[0]}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def run_arm(scfg, keep_drop):
+        legs, hits = {}, {}
+
+        def put(store, seed, data=pls, sq=seqs, now=0, **faults):
+            return timed(lambda: cv.announce_chunked(
+                swarm, cfg_f, store, scfg, keys, vals, sq, now, None, data,
+                lens, origins=og(seed), **faults))
+
+        def get(store, seed, sc=None):
+            return timed(lambda: cv.get_chunked(
+                swarm, cfg_f, store, sc or scfg, keys, None, parts,
+                origins=og(seed)))
+
+        def fresh():
+            return stg.empty_store(n, scfg)
+
+        def book(name, affected, reps, res, walls):
+            hit, m = measure(res)
+            legs[name] = dict(m, affected=affected, trace=tsum(
+                *[r.trace.to_dict() for r in reps]),
+                put_wall_s=walls[0], get_wall_s=walls[1])
+            hits[name] = hit
+            return m
+
+        (store, rep), tp = put(fresh(), 100)
+        res, tg = get(store, 101)
+        book("clean", 0, [rep], res, (tp, tg))
+        del store, res
+        (store, rep), tp = put(fresh(), 120, part_range=(0, kp))
+        res, tg = get(store, 121)
+        book("kill_mid", int(kill_rows.sum()), [rep], res, (tp, tg))
+        del store, res
+        (store, rep1), tp1 = put(fresh(), 130)
+        (store, rep2), tp2 = put(store, 131, sq=seqs + 1, now=1,
+                                 part_range=(0, 1))
+        # Read along the overwrite's own routing (its lookup reached
+        # every replica the torn part 0 reached), then as an independent
+        # reader: where that reader's lookup misses the torn part 0 (the
+        # engine's rare disjoint found sets), it may read the previous
+        # value whole — seq 1, exact — and nothing else.
+        res, tg = get(store, 131)
+        book("torn_overwrite", int(torn_rows.sum()), [rep1, rep2], res,
+             (tp1 + tp2, tg))
+        ind, _ = get(store, 132)
+        exact = (ind.hit & (ind.length == lens)
+                 & (ind.payload == oracle).all(1))
+        t_hit = ind.hit & torn_rows
+        legs["torn_overwrite"]["independent_reader"] = {
+            "hit": int(ind.hit.sum()), "torn_rows_hit": int(t_hit.sum()),
+            "torn_rows_hit_whole_previous_value": int(
+                (t_hit & (ind.seq == 1) & exact).sum())}
+        if not bool((~t_hit | ((ind.seq == 1) & exact)).all()):
+            failures.append("chunked: an independent reader read a torn "
+                            "value that is not the whole previous one")
+        del store, res, ind
+        (store, rep1), tp1 = put(fresh(), 140)
+        (store, rep2), tp2 = put(store, 141, data=forged, sq=seqs + 2, now=2)
+        res, tg = get(store, 142)
+        m = book("forge", int(forge_rows.sum()), [rep1, rep2], res,
+                 (tp1 + tp2, tg))
+        if scfg.verify:
+            guard, _ = get(store, 142, sc=scfg_u)
+            legs["forge"]["root_rejects"] = int(guard.hit.sum()) - m["hit"]
+            del guard
+        del store, res
+        (store_drop, rep), tp = put(fresh(), 110, part_drop_mask=drop_mask)
+        res, tg = get(store_drop, 111)
+        book("torn_drop", int(tdrop.sum()), [rep], res, (tp, tg))
+        del res
+        h_tot = sum(lg["hit"] for lg in legs.values())
+        e_tot = sum(lg["exact"] for lg in legs.values())
+        arm = {"integrity": 1.0 if h_tot == 0 else e_tot / h_tot,
+               "legs": legs}
+        return arm, hits, (store_drop if keep_drop else None)
+
+    t_start = time.perf_counter()
+    undefended, hits_u, _ = run_arm(scfg_u, False)
+    torch.cuda.empty_cache()
+    defended, hits_d, store_drop = run_arm(scfg_v, True)
+    # Clean-leg conservation: every active part on every found node.
+    found = sw.lookup(swarm, cfg_f, keys, origins=og(100)).found
+    per_row = (found >= 0).sum(dim=1)
+    oracle_req = sum(int(per_row[(words > j * w) | (j == 0)].sum())
+                     for j in range(parts))
+    del found
+    tr_clean = defended["legs"]["clean"]["trace"]
+    torn_n = torn_miss = 0
+    for name, rows in (("torn_drop", tdrop), ("kill_mid", kill_rows),
+                       ("torn_overwrite", torn_rows)):
+        for hits in (hits_d, hits_u):
+            torn_n += int(rows.sum())
+            torn_miss += int((~hits[name][rows]).sum())
+    torn_missing_rate = torn_miss / torn_n if torn_n else 1.0
+    garbled = sum(lg["garbled"] for lg in defended["legs"].values())
+
+    # Heal: churn 0.25 + heal, then owner re-announce sweeps.
+    healed = sw.churn(swarm._replace(tables=swarm.tables.clone()), gen,
+                      0.25, cfg_f)
+    sw.heal_swarm(healed, cfg_f, gen)
+
+    def heal_get(seed):
+        return measure(cv.get_chunked(
+            healed, cfg_f, store_drop, scfg_v, keys, None, parts,
+            origins=sw._sample_origins(torch.Generator(device=dev)
+                                       .manual_seed(seed), healed.alive, p)))
+
+    _, m = heal_get(152)
+    pre_hit, sweeps, t0 = m["hit"], 0, time.perf_counter()
+    for s in range(1, 4):
+        store_drop, _ = cv.announce_chunked(
+            healed, cfg_f, store_drop, scfg_v, keys, vals, seqs, 10 + s,
+            torch.Generator(device=dev).manual_seed(160 + s), pls, lens)
+        _, m = heal_get(170 + s)
+        sweeps = s
+        if m["hit"] == p:
+            break
+    torch.cuda.synchronize()
+    heal = {"pre_hit": pre_hit, "post_hit": m["hit"], "sweeps": sweeps,
+            "post_garbled": m["garbled"],
+            "sweeps_wall_s": time.perf_counter() - t0}
+    launches = dict(kernels.LAUNCHES)
+    out = {"n_nodes": n, "values": p, "parts": parts, "payload_words": w,
+           "digest_parity_4096": digest_parity,
+           "defended": defended, "undefended": undefended,
+           "torn_missing_rate": torn_missing_rate,
+           "defended_garbled_reads": garbled,
+           "undefended_garbled_reads": sum(
+               lg["garbled"] for lg in undefended["legs"].values()),
+           "root_rejects": defended["legs"]["forge"]["root_rejects"],
+           "clean_conservation": {"requests": tr_clean["requests"],
+                                  "oracle_requests": oracle_req,
+                                  "accepts_new": tr_clean["accepts_new"],
+                                  "rejects": tr_clean["rejects"]},
+           "heal": heal, "wall_s": time.perf_counter() - t_start,
+           "launches": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "card": card}
+    log("chunked_path " + json.dumps(out))
+    if torn_missing_rate != 1.0:
+        failures.append(f"chunked: torn rows read back "
+                        f"(missing rate {torn_missing_rate})")
+    if garbled:
+        failures.append(f"chunked: the defended arm served {garbled} "
+                        f"garbled rows")
+    if not digest_parity:
+        failures.append("chunked ids differ from hashlib")
+    # A fresh store: every request is a new key, accepted or refused
+    # (a node's ring overflowing in one batch).
+    if tr_clean["requests"] != oracle_req or (
+            tr_clean["accepts_new"] + tr_clean["rejects"] != oracle_req
+            or tr_clean["accepts_update"]):
+        failures.append("chunked: the clean leg's trace does not conserve "
+                        "the oracle's requests")
+    for arm in (defended, undefended):
+        if arm["legs"]["clean"]["hit"] < 0.99 * p:
+            failures.append("chunked: clean leg hit rate under 0.99")
+    if heal["post_garbled"] or heal["post_hit"] < heal["pre_hit"]:
+        failures.append(f"chunked heal: {heal}")
+    if launches["fused_round"] <= 0:
+        failures.append("fused_round was not launched on the chunked path")
+    del store_drop, healed
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1324,6 +2127,7 @@ def main() -> int:
     phase_kernels_vs_plain(dev, failures)
     phase_card_vs_cpu(dev, failures)
     phase_chaos_storage_card_vs_cpu(dev, failures)
+    phase_serve_chunked_card_vs_cpu(dev, failures)
 
     # ---- the main path -------------------------------------------------
     cfg = sw.SwarmConfig.for_nodes(N_NODES)
@@ -1352,6 +2156,7 @@ def main() -> int:
         "lookups_per_s": N_LOOKUPS / wall, "wall_s": wall, "walls_s": walls,
         "median_hops": float(res.hops.float().median()),
         "done_frac": done_frac, "recall_at_8": recall,
+        "found_head_empty": int((res.found[:, 0] < 0).sum()),
         "build_swarm_s": build_swarm_s,
         "rounds_dispatched": stats.get("rounds_dispatched"),
         "widths": stats.get("widths"),
@@ -1390,6 +2195,7 @@ def main() -> int:
         "wall_s": wall_f, "walls_s": walls_f,
         "k1_engine_wall_s": wall, "same_as_k1_engine": same,
         "done_frac": done_f, "recall_at_8": recall_f,
+        "found_head_empty": int((res_f.found[:, 0] < 0).sum()),
         "owner_found_frac": owner_hit, "owners_equal_k3": owners_exact,
         "rounds_dispatched": stats_f.get("rounds_dispatched"),
         "widths": stats_f.get("widths"), "launches": launches_f,
@@ -1421,11 +2227,22 @@ def main() -> int:
     # ---- this slice's paths: the chaos engine and the storage plane ----
     launches_c = phase_chaos_full(sw, swarm, cfg, targets, card, failures)
     launches_s = phase_storage_full(sw, swarm, cfg_f, card, failures)
+
+    # ---- the serve engine and chunked values ----------------------------
+    launches_v, serve_times = phase_serve_full(sw, swarm, cfg, targets,
+                                               origins, res, card, failures)
+    launches_k = phase_chunked_full(sw, swarm, cfg_f, card, failures)
     by_path = {"main": launches, "fused": launches_f, "chaos": launches_c,
-               "storage": launches_s}
+               "storage": launches_s, "serve": launches_v,
+               "chunked": launches_k}
     for row in kernel_rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}
+        if row["name"] in serve_times:
+            t = serve_times[row["name"]]
+            row["serve_shape"] = {"rows": 2048, "ms": t[0], "plain_ms": t[1],
+                                  "max_abs_err": t[2], "bound_ms": t[3],
+                                  "bound_by": t[4]}
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:

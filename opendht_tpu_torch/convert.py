@@ -1,7 +1,8 @@
 """Carry swarm and lookup state across from the JAX package.
 
-The JAX engine's ``Swarm``, ``LookupState`` and ``SwarmStore`` are
-pytrees of arrays;
+The JAX engine's ``Swarm``, ``LookupState`` (a serve state too),
+``SwarmStore`` and the serve engine's ``ResultCache`` are pytrees of
+arrays;
 passed here as numpy arrays, they become the port's tensors on the
 chosen device (the card unless the caller asks for the CPU, as every
 entry point resolves it), so both packages then compute on the same state — the
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.serve import ResultCache
 from .models.storage import SwarmStore
 from .models.swarm import LookupState, LookupTrace, Swarm, resolve_device
 
@@ -43,6 +45,12 @@ def swarm_from_numpy(ids, tables, alive, byzantine=None,
 
 def _tensor(x, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
+def _field(x: np.ndarray, device) -> torch.Tensor:
+    """A field of its own dtype; uint32 widens to int64."""
+    return (u32_tensor(x, device) if x.dtype == np.uint32
+            else _tensor(x, x.dtype, device))
 
 
 def state_from_numpy(targets, idx, dist, queried, done, hops,
@@ -91,7 +99,16 @@ def store_from_numpy(*fields, device=None) -> SwarmStore:
               "lexps": (n, ls), "payload": (n, s, w)}
     out = {}
     for name, x in f.items():
-        x = x.reshape(shapes.get(name, x.shape))
-        out[name] = (u32_tensor(x, device) if x.dtype == np.uint32
-                     else _tensor(x, x.dtype, device))
+        out[name] = _field(x.reshape(shapes.get(name, x.shape)), device)
     return SwarmStore(**out)
+
+
+def cache_from_numpy(*fields, device=None) -> ResultCache:
+    """A JAX serve ``ResultCache`` as numpy arrays, in field order
+    (``keys``, ``found``, ``hops``, ``fill_round``, ``fill_epoch``,
+    ``epoch``) → the port's cache; uint32 fields widen to int64."""
+    device = resolve_device(device)
+    if len(fields) != len(ResultCache._fields):
+        raise ValueError(f"a ResultCache has {len(ResultCache._fields)} "
+                         f"fields, got {len(fields)}")
+    return ResultCache(*[_field(np.asarray(x), device) for x in fields])

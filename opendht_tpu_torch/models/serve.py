@@ -1,0 +1,1038 @@
+"""Open-loop serving engine: slot-recycled continuous lookups.
+
+Counterpart of the burst engine of ``opendht_tpu/models/serve.py``.
+The engine keeps a fixed ``[C]``-slot :class:`LookupState` on the
+device.  A free slot is ``done=True`` with an empty shortlist — inert in
+the shared round step (done rows solicit nobody) — so occupancy is a
+cost knob, not a semantics one.  Each host-loop iteration:
+
+* **admit** — queued requests (arrived by their open-loop timestamps)
+  are scattered into free slots as one fixed-width micro-batch
+  (``admit_cap``, padded with the sentinel slot ``C``, which lands in a
+  spare row that is sliced off); the seed exchange is
+  :func:`~opendht_tpu_torch.models.swarm.lookup_init`, the batch
+  engine's, and ``admitted_round`` is stamped with the round index;
+* **burst** — a few rounds of the shared step
+  (:func:`~opendht_tpu_torch.models.swarm.lookup_step`: K1 on the card
+  under ``merge_impl="auto"``, K2 under ``"fused-round"``) advance
+  every occupied slot; finished rows freeze and the lifecycle plane
+  stamps ``completed_round``;
+* **harvest** — one readback a burst (:meth:`ServeEngine.snapshot`, a
+  single device-to-host transfer) returns done/hops/lifecycle/found;
+  newly done slots are recorded and recycled.
+
+Latency is reconstructed: ``arrival→completion = round-end wall
+(completed_round) − arrival``, with round-end walls interpolated inside
+each burst and floored at the admission wall.
+
+Overlays, each off by default: the device hot-key result cache
+(:class:`ResultCache`: a hit completes in zero rounds without a slot;
+misses run exactly the cache-off programs), per-class token-bucket
+admission (:class:`AdmissionControl`: ``shed`` / ``queue`` /
+``degrade``), and a signed request class checked by a
+:class:`~opendht_tpu_torch.models.integrity.SignatureStage`.
+
+Host syncs.  The loop reads the device back where the JAX loop does:
+once a burst (the snapshot) and, with the cache on, once a probed
+admission (the hit rows) or a ``degrade`` probe.  Uploads of the host's
+admission batches go through pinned memory without blocking, and the
+origin sampler reads the alive count once, when the engine is built.
+
+Randomness is an argument: admissions take their origins as a tensor;
+:func:`serve_open_loop` and :func:`closed_loop_replay` draw them from an
+explicit ``torch.Generator`` unless given (``origins_of`` / ``origins``);
+:func:`poisson_zipf_events` draws its arrivals and Zipf keys with numpy
+(as the JAX function does) and its key pool from a seeded
+``torch.Generator`` unless ``pool`` is given.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections import OrderedDict
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.u32 import MASK32, U32_MAX, mul32
+from ..ops.xor_metric import N_LIMBS
+from ..utils.rate_limiter import TokenBucket
+from .swarm import (
+    LookupResult,
+    LookupState,
+    Swarm,
+    SwarmConfig,
+    _alive_cdf,
+    _draw_alive,
+    _finalize,
+    _require_on,
+    burst_schedule,
+    lookup_init,
+    lookup_step,
+    resolve_device,
+)
+
+
+class ServeOverloadError(RuntimeError):
+    """The open-loop arrival stream exceeds what the slot capacity can
+    drain: the admission queue grew past the overload bound.  With an
+    :class:`AdmissionControl` of policy ``shed`` (or ``degrade``) the
+    engine sheds the excess instead and never raises this."""
+
+
+# ---------------------------------------------------------------------------
+# transfers
+# ---------------------------------------------------------------------------
+
+def _upload(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A host array (numpy, uint32 widened to int64) or a tensor as a
+    ``dtype`` tensor on ``dev``.  To the card it goes through pinned
+    memory without blocking, so an upload never waits for the device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _fetch(*ts: torch.Tensor):
+    """Read several ``[R, ...]`` tensors back in one transfer → numpy
+    arrays of their own dtypes (bool, int32, int64)."""
+    r = ts[0].shape[0]
+    flat = [t.reshape(r, -1).to(torch.int64) for t in ts]
+    host = torch.cat(flat, dim=1).cpu().numpy()
+    out, c = [], 0
+    for t, f in zip(ts, flat):
+        w = f.shape[1]
+        a = host[:, c:c + w].reshape(t.shape)
+        out.append(a.astype(np.bool_) if t.dtype == torch.bool
+                   else a.astype(np.int32) if t.dtype == torch.int32 else a)
+        c += w
+    return out
+
+
+def _set_rows(plane: torch.Tensor, rows: torch.Tensor,
+              vals) -> torch.Tensor:
+    """``plane`` with ``rows`` set to ``vals``; a row index equal to the
+    plane's length (the sentinel) lands in a spare row that is sliced
+    off — JAX's ``mode="drop"``, with no row clamped onto a live one."""
+    ext = torch.cat([plane, plane[:1]])
+    ext[rows.long()] = vals
+    return ext[:-1]
+
+
+# ---------------------------------------------------------------------------
+# device hot-key result cache
+# ---------------------------------------------------------------------------
+
+class ResultCache(NamedTuple):
+    """Direct-mapped result cache over ``K = keys.shape[0]`` slots: a
+    key's slot is a mix of its five limbs mod K (:func:`_cache_slot_of`),
+    so a probe is one gather and a fill one scatter.  A colliding fill
+    evicts.  An entry is live iff its ``fill_epoch`` equals ``epoch``;
+    :func:`_cache_invalidate` bumps the epoch and every entry goes
+    stale at once."""
+    keys: torch.Tensor        # [K,5] int64 u32 key limbs
+    found: torch.Tensor       # [K,quorum] int32 result heads (-1 pad)
+    hops: torch.Tensor        # [K] int32 hops the fill paid
+    fill_round: torch.Tensor  # [K] int32 engine round at fill
+    fill_epoch: torch.Tensor  # [K] int64 u32 epoch at fill (0 = never)
+    epoch: torch.Tensor       # [] int64 u32 current epoch (starts at 1)
+
+
+def empty_result_cache(cfg: SwarmConfig, k_slots: int,
+                       device=None) -> ResultCache:
+    """All-stale ``[k_slots]`` cache: fill epochs 0, epoch 1."""
+    dev = resolve_device(device)
+    return ResultCache(
+        keys=torch.zeros((k_slots, N_LIMBS), dtype=torch.int64, device=dev),
+        found=torch.full((k_slots, cfg.quorum), -1, dtype=torch.int32,
+                         device=dev),
+        hops=torch.zeros((k_slots,), dtype=torch.int32, device=dev),
+        fill_round=torch.zeros((k_slots,), dtype=torch.int32, device=dev),
+        fill_epoch=torch.zeros((k_slots,), dtype=torch.int64, device=dev),
+        epoch=torch.ones((), dtype=torch.int64, device=dev))
+
+
+def _cache_slot_of(keys: torch.Tensor, k_slots: int) -> torch.Tensor:
+    """``[A,5] -> [A]`` int32 direct-map slot: a murmur-style limb mix
+    mod ``k_slots``, in u32 arithmetic (products through ``mul32``)."""
+    h = keys[:, 0]
+    for j in range(1, N_LIMBS):
+        h = mul32(h, 0x9E3779B1) ^ keys[:, j]
+    h = h ^ (h >> 16)
+    h = mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    return (h % k_slots).to(torch.int32)
+
+
+def _cache_slot_np(keys: np.ndarray, k_slots: int) -> np.ndarray:
+    """Numpy uint32 twin of :func:`_cache_slot_of`: the host dedupes a
+    fill batch by slot before the scatter, since the scatter writes its
+    five fields separately and a repeated index would leave each
+    field's winner to the device."""
+    with np.errstate(over="ignore"):
+        k = keys.astype(np.uint32)
+        h = k[:, 0]
+        for j in range(1, N_LIMBS):
+            h = (h * np.uint32(0x9E3779B1)) ^ k[:, j]
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x7FEB352D)
+        h = h ^ (h >> np.uint32(15))
+        return (h % np.uint32(k_slots)).astype(np.int64)
+
+
+def _probe_impl(cache: ResultCache, keys: torch.Tensor):
+    """One slot gather, a 5-limb compare and the epoch check →
+    ``(hit [A] bool, found [A,q] int32, hops [A] int32)``."""
+    sl = _cache_slot_of(keys, cache.keys.shape[0]).long()
+    hit = ((cache.keys[sl] == keys).all(dim=1)
+           & (cache.fill_epoch[sl] == cache.epoch))
+    return hit, cache.found[sl], cache.hops[sl]
+
+
+def _cache_probe(cache: ResultCache, keys: torch.Tensor):
+    """Standalone probe (the ``degrade`` policy's read); the cache is
+    untouched."""
+    return _probe_impl(cache, keys)
+
+
+def _cache_fill(cache: ResultCache, keys: torch.Tensor, found: torch.Tensor,
+                hops: torch.Tensor, mask: torch.Tensor, rnd) -> ResultCache:
+    """Fill harvested results: ``keys [M,5]`` / ``found [M,q]`` / ``hops
+    [M]`` with ``mask [M]`` selecting the real rows (the rest go to the
+    sentinel slot and vanish).  The caller passes slot-unique real rows
+    (:meth:`ServeEngine.fill_cache` dedupes on the host)."""
+    k_slots = cache.keys.shape[0]
+    sl = torch.where(mask, _cache_slot_of(keys, k_slots), k_slots)
+    r32 = torch.full(sl.shape, int(rnd), dtype=torch.int32, device=sl.device)
+    return cache._replace(
+        keys=_set_rows(cache.keys, sl, keys),
+        found=_set_rows(cache.found, sl, found),
+        hops=_set_rows(cache.hops, sl, hops),
+        fill_round=_set_rows(cache.fill_round, sl, r32),
+        fill_epoch=_set_rows(cache.fill_epoch, sl,
+                             cache.epoch.expand(sl.shape)))
+
+
+def _cache_invalidate(cache: ResultCache) -> ResultCache:
+    """Bump the epoch: every entry goes stale at once (the announce
+    paths' invalidation)."""
+    return cache._replace(epoch=(cache.epoch + 1) & MASK32)
+
+
+# ---------------------------------------------------------------------------
+# the serve state
+# ---------------------------------------------------------------------------
+
+def empty_serve_state(cfg: SwarmConfig, slots: int,
+                      device=None) -> LookupState:
+    """All-free ``[slots]`` serve state: every row done with an empty
+    shortlist and lifecycle ``-1``/``-1`` (never admitted)."""
+    dev = resolve_device(device)
+    s = cfg.search_width
+
+    def full(shape, v, dtype):
+        return torch.full(shape, v, dtype=dtype, device=dev)
+
+    return LookupState(
+        targets=full((slots, N_LIMBS), 0, torch.int64),
+        idx=full((slots, s), -1, torch.int32),
+        dist=full((slots, s), U32_MAX, torch.int64),
+        queried=full((slots, s), False, torch.bool),
+        done=full((slots,), True, torch.bool),
+        hops=full((slots,), 0, torch.int32),
+        admitted_round=full((slots,), -1, torch.int32),
+        completed_round=full((slots,), -1, torch.int32))
+
+
+def _admit(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+           keys: torch.Tensor, slots: torch.Tensor, origins: torch.Tensor,
+           rnd: int) -> LookupState:
+    """Scatter a padded admission micro-batch into free slots: ``keys
+    [A,5]``, ``slots [A]`` (pad sentinel ``C``), ``origins [A]``.  The
+    seed exchange is the batch engine's ``lookup_init``, so a
+    closed-loop replay through here equals ``lookup``."""
+    new = lookup_init(swarm, cfg, keys, origins)
+    return _scatter_rows_into(st, new, slots, rnd)
+
+
+def _scatter_rows_into(st: LookupState, new: LookupState,
+                       slots: torch.Tensor, rnd: int) -> LookupState:
+    """The admission scatter (sentinel = the slot count, dropped): the
+    new rows, not done, zero hops, admitted at ``rnd``, not complete."""
+    a = slots.shape[0]
+    dev = slots.device
+
+    def const(v, dtype):
+        return torch.full((a,), v, dtype=dtype, device=dev)
+
+    return LookupState(
+        targets=_set_rows(st.targets, slots, new.targets),
+        idx=_set_rows(st.idx, slots, new.idx),
+        dist=_set_rows(st.dist, slots, new.dist),
+        queried=_set_rows(st.queried, slots, new.queried),
+        done=_set_rows(st.done, slots, const(False, torch.bool)),
+        hops=_set_rows(st.hops, slots, const(0, torch.int32)),
+        admitted_round=_set_rows(st.admitted_round, slots,
+                                 const(int(rnd), torch.int32)),
+        completed_round=_set_rows(st.completed_round, slots,
+                                  const(-1, torch.int32)))
+
+
+def _admit_cached(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+                  cache: ResultCache, keys: torch.Tensor,
+                  slots: torch.Tensor, origins: torch.Tensor, rnd: int):
+    """:func:`_admit` with the result cache consulted first: rows that
+    hit a live entry go to the sentinel (no slot, zero rounds); misses
+    scatter exactly as :func:`_admit`.  Returns ``(state, cache, hit,
+    hit_found, hit_hops)``; the cache passes through unchanged."""
+    c = st.done.shape[0]
+    hit, h_found, h_hops = _probe_impl(cache, keys)
+    new = lookup_init(swarm, cfg, keys, origins)
+    eff = torch.where(hit, c, slots)
+    st = _scatter_rows_into(st, new, eff, rnd)
+    return st, cache, hit, h_found, h_hops
+
+
+def _snapshot(swarm: Swarm, cfg: SwarmConfig, st: LookupState):
+    """The harvest: done, hops, lifecycle rows and the finalized result
+    heads (on the device; :meth:`ServeEngine.snapshot` reads them back
+    in one transfer)."""
+    return (st.done, st.hops, st.admitted_round, st.completed_round,
+            _finalize(swarm.ids, st, cfg))
+
+
+def _expire_slots(st: LookupState, slots: torch.Tensor) -> LookupState:
+    """Retire rows past their round budget: mark them done (sentinel
+    slots dropped).  ``completed_round`` stays -1, so the host books
+    them as expired, not as latency samples."""
+    done = _set_rows(st.done, slots, torch.ones(slots.shape, dtype=torch.bool,
+                                                device=slots.device))
+    return st._replace(done=done)
+
+
+class ServeEngine:
+    """Single-device serve engine: admit / step / snapshot over one
+    resident ``[slots]`` state; ``admit_cap`` fixes the admission
+    micro-batch width.  ``cache_slots > 0`` attaches the result cache:
+    admissions go through :meth:`admit_probed`, completions fill it
+    through :meth:`fill_cache`, announces invalidate it through
+    :meth:`invalidate_cache`.  The swarm must live on ``device`` (the
+    card unless ``"cpu"`` is asked for)."""
+
+    def __init__(self, swarm: Swarm, cfg: SwarmConfig, slots: int,
+                 admit_cap: int | None = None, cache_slots: int = 0,
+                 device=None):
+        self.device = resolve_device(device)
+        _require_on(swarm, self.device)
+        self.swarm, self.cfg, self.slots = swarm, cfg, slots
+        self.admit_cap = min(slots, admit_cap or min(slots, 512))
+        if cache_slots < 0:
+            raise ValueError(f"cache_slots must be >= 0, got "
+                             f"{cache_slots}")
+        self.cache_slots = cache_slots
+        self.cache = (empty_result_cache(cfg, cache_slots, self.device)
+                      if cache_slots else None)
+        # Test hook: False keeps the cache cold (every probe misses).
+        self.cache_fill_enabled = True
+        # The origin sampler's alive prefix sum, read once here so that
+        # drawing origins costs no readback inside the serve loop.
+        self._alive_cdf = _alive_cdf(swarm.alive)
+
+    def draw_origins(self, generator: torch.Generator, l: int
+                     ) -> torch.Tensor:
+        """``l`` uniform alive origins: the draw of
+        :func:`opendht_tpu_torch.models.swarm._sample_origins` (same
+        generator, same result) with the alive count read once."""
+        return _draw_alive(generator, *self._alive_cdf, l)
+
+    def empty(self) -> LookupState:
+        return empty_serve_state(self.cfg, self.slots, self.device)
+
+    def _batch(self, keys, slots, origins):
+        d = self.device
+        return (_upload(keys, torch.int64, d), _upload(slots, torch.int64, d),
+                _upload(origins, torch.int32, d))
+
+    def admit(self, st, keys, slots, origins, rnd):
+        """Admit ``keys [A,5]`` into ``slots [A]`` (sentinel ``C``) from
+        ``origins [A]`` at round ``rnd``."""
+        keys, slots, origins = self._batch(keys, slots, origins)
+        return _admit(self.swarm, self.cfg, st, keys, slots, origins, rnd)
+
+    def step(self, st, rnd):
+        return lookup_step(self.swarm, self.cfg, st, rnd=rnd)
+
+    def admit_probed(self, st, keys, slots, origins, rnd):
+        """Cache-consulted admission → ``(state, hit, hit_found,
+        hit_hops)`` with the hit rows read back (one transfer: the
+        cache-on loop's extra sync)."""
+        keys, slots, origins = self._batch(keys, slots, origins)
+        st, self.cache, hit, found, hops = _admit_cached(
+            self.swarm, self.cfg, st, self.cache, keys, slots, origins, rnd)
+        h, f, hp = _fetch(hit, found, hops)
+        return st, h, f, hp
+
+    def probe_cache(self, keys):
+        """``(hit, found, hops)`` numpy rows for ``keys [A,5]`` (the
+        ``degrade`` policy's read)."""
+        return _fetch(*_cache_probe(self.cache,
+                                    _upload(keys, torch.int64, self.device)))
+
+    def fill_cache(self, keys_np, found_np, hops_np, rnd) -> int:
+        """Fill harvested completions, padded to ``admit_cap`` rows.
+        Negative results (an empty found head) are never cached; rows
+        colliding on a slot are deduped on the host (the last one
+        wins); rows past the cap are dropped.  Returns the rows
+        filled."""
+        if self.cache is None or not self.cache_fill_enabled:
+            return 0
+        keys_np = np.asarray(keys_np, np.uint32).reshape(-1, N_LIMBS)
+        found_np = np.asarray(found_np)
+        if len(keys_np):
+            ok = found_np[:, 0] >= 0
+            keys_np = keys_np[ok]
+            found_np = found_np[ok]
+            hops_np = np.asarray(hops_np)[ok]
+        if len(keys_np):
+            sl = _cache_slot_np(keys_np, self.cache_slots)
+            _, last = np.unique(sl[::-1], return_index=True)
+            pick = np.sort(len(sl) - 1 - last)
+            keys_np = keys_np[pick]
+            found_np = found_np[pick]
+            hops_np = np.asarray(hops_np)[pick]
+        a = self.admit_cap
+        m = min(len(keys_np), a)
+        keys = np.zeros((a, N_LIMBS), np.uint32)
+        found = np.full((a, self.cfg.quorum), -1, np.int32)
+        hops = np.zeros((a,), np.int32)
+        mask = np.zeros((a,), bool)
+        keys[:m] = keys_np[:m]
+        found[:m] = found_np[:m]
+        hops[:m] = hops_np[:m]
+        mask[:m] = True
+        d = self.device
+        self.cache = _cache_fill(
+            self.cache, _upload(keys, torch.int64, d),
+            _upload(found, torch.int32, d), _upload(hops, torch.int32, d),
+            _upload(mask, torch.bool, d), rnd)
+        return m
+
+    def invalidate_cache(self) -> None:
+        """Bump the cache epoch (a no-op without a cache)."""
+        if self.cache is not None:
+            self.cache = _cache_invalidate(self.cache)
+
+    def expire(self, st, slots):
+        return _expire_slots(st, _upload(slots, torch.int64, self.device))
+
+    def snapshot(self, st):
+        """``(done, hops, admitted_round, completed_round, found)`` as
+        numpy arrays, read back in one transfer."""
+        return _fetch(*_snapshot(self.swarm, self.cfg, st))
+
+
+# ---------------------------------------------------------------------------
+# schedule and admission policy
+# ---------------------------------------------------------------------------
+
+def poisson_zipf_events(rate: float, duration: float, key_pool: int,
+                        zipf_s: float, seed: int = 0,
+                        hot_frac: float = 0.01,
+                        return_draw: bool = False, *,
+                        pool: np.ndarray | None = None):
+    """Open-loop schedule: Poisson(``rate``) arrival times over ``[0,
+    duration)`` and Zipf(``zipf_s``)-popular keys from a ``key_pool``-key
+    universe (``zipf_s = 0``: uniform).  Returns ``(arrival_ts [R]
+    float64, keys [R,5] uint32 numpy, klass [R] "hot"/"cold")`` — a key
+    is hot when its popularity rank is in the top ``hot_frac`` — and,
+    with ``return_draw``, the ranks.  The arrivals and ranks come from
+    ``numpy.random.default_rng(seed)`` in the JAX function's order; the
+    pool ``[key_pool, 5]`` is ``pool`` if given, else drawn from a
+    ``torch.Generator`` seeded ``seed ^ 0x5EED``."""
+    if rate <= 0 or duration <= 0:
+        raise ValueError("rate and duration must be > 0")
+    rng = np.random.default_rng(seed)
+    n_est = int(rate * duration * 1.5) + 64
+    while True:
+        gaps = rng.exponential(1.0 / rate, size=n_est)
+        ts = np.cumsum(gaps)
+        if ts[-1] >= duration:
+            break
+        n_est *= 2
+    ts = ts[ts < duration]
+    r = len(ts)
+    if pool is None:
+        g = torch.Generator().manual_seed(seed ^ 0x5EED)
+        pool = torch.randint(0, 2**32, (key_pool, N_LIMBS), generator=g,
+                             dtype=torch.int64).numpy().astype(np.uint32)
+    pool = np.asarray(pool, np.uint32)
+    if zipf_s > 0:
+        rnk = np.arange(1, key_pool + 1, dtype=np.float64)
+        prob = rnk ** -zipf_s
+        prob /= prob.sum()
+        draw = rng.choice(key_pool, size=r, p=prob)
+    else:
+        draw = rng.integers(0, key_pool, size=r)
+    hot_cut = max(1, int(key_pool * hot_frac))
+    klass = np.where(draw < hot_cut, "hot", "cold")
+    if return_draw:
+        return ts, pool[draw], klass, draw
+    return ts, pool[draw], klass
+
+
+class AdmissionControl:
+    """Per-class token-bucket admission at the slot plane's admission
+    step.  One :class:`~opendht_tpu_torch.utils.rate_limiter.TokenBucket`
+    per request class accrues ``rate`` tokens/s up to ``burst``;
+    ``per_key_rate`` adds a bucket per request key, checked first (at
+    most ``max_keys`` live, evicted LRU), and both are peeked before
+    either is charged.  A request whose bucket is dry is handled per
+    ``policy``: ``shed`` (dropped and counted; queue overflow sheds too
+    instead of raising), ``queue`` (waits, head of line; incompatible
+    with per-key buckets) or ``degrade`` (answered from the result cache
+    only: a hit completes, a miss is shed)."""
+
+    POLICIES = ("shed", "queue", "degrade")
+
+    def __init__(self, rate: float, burst: float | None = None,
+                 policy: str = "shed",
+                 per_key_rate: float | None = None,
+                 per_key_burst: float | None = None,
+                 max_keys: int = 4096):
+        if policy not in self.POLICIES:
+            raise ValueError(f"admission policy must be one of "
+                             f"{self.POLICIES}, got {policy!r}")
+        if rate <= 0:
+            raise ValueError(f"admission rate must be > 0, got {rate}")
+        self.rate = float(rate)
+        self.burst = float(burst) if burst is not None \
+            else max(1.0, self.rate)
+        if self.burst < 1.0:
+            raise ValueError(f"admission burst must be >= 1, got "
+                             f"{self.burst}")
+        self.policy = policy
+        if per_key_rate is not None and per_key_rate <= 0:
+            raise ValueError(f"per-key admission rate must be > 0, "
+                             f"got {per_key_rate}")
+        if per_key_rate is not None and policy == "queue":
+            raise ValueError(
+                "per-key buckets are incompatible with the 'queue' "
+                "policy: queue is head-of-line, so a key-dry head "
+                "request would block every request behind it — the "
+                "exact starvation per-key fairness exists to remove; "
+                "use policy 'shed' or 'degrade'")
+        self.per_key_rate = (float(per_key_rate)
+                             if per_key_rate is not None else None)
+        self.per_key_burst = (float(per_key_burst)
+                              if per_key_burst is not None
+                              else (max(1.0, self.per_key_rate)
+                                    if self.per_key_rate else None))
+        if self.per_key_burst is not None and self.per_key_burst < 1.0:
+            raise ValueError(f"per-key admission burst must be >= 1, "
+                             f"got {self.per_key_burst}")
+        if max_keys < 1:
+            raise ValueError(f"max_keys must be >= 1, got {max_keys}")
+        self.max_keys = int(max_keys)
+        self.key_evictions = 0
+        self._buckets: dict = {}
+        self._key_buckets: OrderedDict = OrderedDict()
+
+    def allow(self, klass, now: float, key=None) -> bool:
+        """Admit one request of ``klass`` (and ``key``) at the loop's
+        ``now``?  A refusal by either bucket charges neither."""
+        kb = None
+        if self.per_key_rate is not None and key is not None:
+            kb = self._key_buckets.get(key)
+            if kb is None:
+                if len(self._key_buckets) >= self.max_keys:
+                    self._key_buckets.popitem(last=False)
+                    self.key_evictions += 1
+                kb = self._key_buckets[key] = TokenBucket(
+                    self.per_key_rate, self.per_key_burst)
+            else:
+                self._key_buckets.move_to_end(key)
+            if not kb.peek(now):
+                return False
+        b = self._buckets.get(klass)
+        if b is None:
+            b = self._buckets[klass] = TokenBucket(self.rate, self.burst)
+        if not b.peek(now):
+            return False
+        if kb is not None:
+            kb.limit(now)
+        return b.limit(now)
+
+
+# ---------------------------------------------------------------------------
+# sizing and warm-up
+# ---------------------------------------------------------------------------
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def measure_round_wall(swarm: Swarm, cfg: SwarmConfig, slots: int = 1024,
+                       rounds: int = 6) -> float:
+    """Seconds a round of a fully occupied ``[slots]`` serve state takes
+    (after a warm pass), the slot autotuner's input.  The keys come from
+    a ``torch.Generator`` seeded 17, the origins from one seeded 18."""
+    dev = swarm.ids.device
+    eng = ServeEngine(swarm, cfg, slots=slots, admit_cap=slots, device=dev)
+    warm_serve_engine(eng)
+    st = eng.empty()
+    keys = torch.randint(0, 2**32, (slots, N_LIMBS),
+                         generator=torch.Generator().manual_seed(17),
+                         dtype=torch.int64)
+    origins = eng.draw_origins(torch.Generator(device=dev).manual_seed(18),
+                               slots)
+    st = eng.admit(st, keys, torch.arange(slots), origins, 0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        st = eng.step(st, r)
+    _sync(dev)
+    return (time.perf_counter() - t0) / rounds
+
+
+def autotune_serve_slots(cfg: SwarmConfig, arrival_rate: float,
+                         round_wall_s: float,
+                         target_occupancy: float = 0.5,
+                         floor: int = 128,
+                         ceil: int = 65536) -> int:
+    """Slots from Little's law: ``rate × (burst_schedule + 1) × round
+    wall / target_occupancy``, rounded up to a power of two and clamped
+    to ``[floor, ceil]``."""
+    if arrival_rate <= 0 or round_wall_s <= 0:
+        raise ValueError("arrival_rate and round_wall_s must be > 0")
+    if not 0.0 < target_occupancy <= 1.0:
+        raise ValueError(f"target_occupancy must be in (0, 1], got "
+                         f"{target_occupancy}")
+    service_s = (burst_schedule(cfg) + 1) * round_wall_s
+    demand = arrival_rate * service_s / target_occupancy
+    slots = 1 << max(0, math.ceil(math.log2(max(1.0, demand))))
+    return int(min(ceil, max(floor, slots)))
+
+
+def warm_serve_engine(engine: ServeEngine) -> None:
+    """Run admit / step / snapshot / expire once off the serve clock
+    (and, with a cache, the probed admit, an all-masked fill and a
+    probe), so building the card's kernels or the first launches never
+    read as queueing delay; the snapshot's readback waits for them.  The
+    warm state is dropped and the cache stays cold."""
+    c, a_cap = engine.slots, engine.admit_cap
+    st = engine.empty()
+    warm_keys = np.zeros((a_cap, N_LIMBS), np.uint32)
+    warm_slots = np.full((a_cap,), c, np.int64)
+    warm_slots[0] = 0
+    warm_origins = np.zeros((a_cap,), np.int32)
+    st = engine.admit(st, warm_keys, warm_slots, warm_origins, 0)
+    st = engine.step(st, 0)
+    engine.snapshot(st)
+    engine.expire(st, np.full((a_cap,), c, np.int64))
+    if engine.cache is not None:
+        st2 = engine.empty()
+        engine.admit_probed(st2, warm_keys, warm_slots, warm_origins, 0)
+        fills_on = engine.cache_fill_enabled
+        engine.cache_fill_enabled = True
+        engine.fill_cache(np.zeros((0, N_LIMBS), np.uint32),
+                          np.zeros((0, engine.cfg.quorum), np.int32),
+                          np.zeros((0,), np.int32), 0)
+        engine.cache_fill_enabled = fills_on
+        engine.probe_cache(warm_keys)
+
+
+# ---------------------------------------------------------------------------
+# the loops
+# ---------------------------------------------------------------------------
+
+def serve_open_loop(engine: ServeEngine, arrival_ts, keys,
+                    generator: torch.Generator | None = None,
+                    klass=None, burst: int = 2,
+                    duration: float | None = None,
+                    overload_queue_factor: int = 8,
+                    drain_round_cap: int | None = None,
+                    clock=None, sleep=None,
+                    admission: AdmissionControl | None = None,
+                    sig_stage=None, signed=None,
+                    signed_value_of=None, *, origins_of=None) -> dict:
+    """Drive the serve engine against an open-loop arrival schedule.
+
+    ``arrival_ts`` / ``keys`` (/ ``klass``) come from
+    :func:`poisson_zipf_events` or any sorted schedule.  The clock starts
+    after a warm pass; requests arrive strictly by their timestamps.
+    Past ``overload_queue_factor × slots`` queued requests (or a hard
+    wall of 5 × the horizon + 30 s) the run raises
+    :class:`ServeOverloadError`, unless the admission policy sheds.  A
+    request that has not converged within ``cfg.max_steps`` rounds of
+    its admission is expired (slot recycled, booked as ``expired``).
+    After the schedule the loop drains in-flight work, at most
+    ``drain_round_cap`` rounds; leftovers are reported ``in_flight``.
+
+    Admission ``i`` draws its ``admit_cap`` origins as
+    ``origins_of(i)`` if given, else from ``generator`` (default: seeded
+    0).  ``clock`` / ``sleep`` inject the time source (defaults
+    ``time.perf_counter`` / ``time.sleep``); the loop reads the clock at
+    exactly the points the JAX loop does, so under a deterministic
+    virtual clock the whole report is a pure function of the schedule
+    and equals the JAX report.
+
+    With ``engine.cache``, admissions are probed: hits complete at the
+    admission wall with zero rounds and zero hops, misses fall through
+    unchanged, and harvested completions fill the cache.  ``admission``
+    applies :class:`AdmissionControl`.  ``sig_stage`` + ``signed`` (an
+    ``[R]`` bool mask) submit each harvest's completed signed requests
+    as one batch (``signed_value_of(ri)`` maps a request to the value
+    the stage checks; default the index).
+
+    Returns the serve report dict: the JAX package's keys, plus two of
+    the port's own.  ``found`` ``[completed, quorum]`` int32 holds each
+    completion's found head (cache hits included), beside ``request``,
+    for recall checks.  ``layer_walls_s`` holds the host seconds spent
+    admitting, stepping, taking snapshots and harvesting (measured
+    outside the clock's reads, so not a function of the schedule; on the
+    card a layer's dispatches may finish inside a later one's wall).
+    Per-request arrays are in completion-observation order.
+    """
+    clock = clock or time.perf_counter
+    sleep = sleep or time.sleep
+    cfg, c = engine.cfg, engine.slots
+    a_cap = engine.admit_cap
+    use_cache = getattr(engine, "cache", None) is not None
+    if admission is not None and admission.policy == "degrade" \
+            and not use_cache:
+        raise ValueError("admission policy 'degrade' answers from the "
+                         "result cache — build the engine with "
+                         "cache_slots > 0")
+    if origins_of is None:
+        gen = generator or torch.Generator(device=engine.device).manual_seed(0)
+        origins_of = lambda i: engine.draw_origins(gen, a_cap)  # noqa: E731
+    walls = {"admit": 0.0, "step": 0.0, "snapshot": 0.0, "harvest": 0.0}
+    pc = time.perf_counter
+    keys = np.asarray(keys, np.uint32)
+    r_total = len(arrival_ts)
+    if klass is None:
+        klass = np.full(r_total, "all")
+    drain_cap = drain_round_cap or 4 * cfg.max_steps
+    if duration is None:
+        duration = float(arrival_ts[-1]) if r_total else 0.0
+    hard_wall = duration * 5.0 + 30.0
+
+    warm_serve_engine(engine)
+    st = engine.empty()
+
+    free = list(range(c - 1, -1, -1))     # pop() → lowest slot first
+    occupied: dict[int, int] = {}         # slot -> request index
+    queue: list[int] = []
+    next_ev = 0
+    rnd = 0
+    adm_i = 0
+    marks_r = [0]
+    marks_w = [0.0]
+    rec_req, rec_lat, rec_hops, rec_rounds, rec_found = [], [], [], [], []
+    rec_answer = []
+    admit_wall = {}
+    queue_depths = []
+    occ_samples = []
+    admitted = completed = expired = 0
+    shed = cache_hits = cache_misses = degraded_hits = 0
+    drain_rounds = 0
+    overload = overload_queue_factor * c
+    sig_submitted = 0
+    sig_pending: list[int] = []
+
+    t0 = clock()
+    while True:
+        now = clock() - t0
+        while next_ev < r_total and arrival_ts[next_ev] <= now:
+            queue.append(next_ev)
+            next_ev += 1
+        if len(queue) > overload:
+            if admission is not None \
+                    and admission.policy in ("shed", "degrade"):
+                over = len(queue) - overload
+                del queue[-over:]
+                shed += over
+            else:
+                raise ServeOverloadError(
+                    f"serve overload: admission queue reached "
+                    f"{len(queue)} requests (> {overload_queue_factor}"
+                    f" x {c} slots) at t={now:.2f}s — the arrival "
+                    f"rate exceeds what this slot capacity sustains "
+                    f"on this machine; lower --arrival-rate, raise "
+                    f"--serve-slots, or shed with --admission shed")
+        if now > hard_wall:
+            if admission is not None \
+                    and admission.policy in ("shed", "degrade"):
+                shed += len(queue) + (r_total - next_ev)
+                queue.clear()
+                next_ev = r_total
+            else:
+                raise ServeOverloadError(
+                    f"serve overload: run exceeded the "
+                    f"{hard_wall:.0f}s hard wall "
+                    f"({r_total - next_ev + len(queue)} requests not "
+                    f"yet admitted, {len(occupied)} in flight) — the "
+                    f"arrival rate exceeds serve capacity on this "
+                    f"machine")
+        queue_depths.append(len(queue))
+
+        # --- admission control
+        cap = min(len(free), a_cap)
+        degr: list[int] = []
+        if admission is None:
+            m = min(len(queue), cap)
+            take = queue[:m]
+            del queue[:m]
+        else:
+            take = []
+            qi = 0
+            per_key = admission.per_key_rate is not None
+            while qi < len(queue) and len(take) < cap \
+                    and len(degr) < a_cap:
+                ri = queue[qi]
+                if admission.allow(str(klass[ri]), now,
+                                   key=(keys[ri].tobytes()
+                                        if per_key else None)):
+                    take.append(ri)
+                elif admission.policy == "shed":
+                    shed += 1
+                elif admission.policy == "degrade":
+                    degr.append(ri)
+                else:           # queue: head-of-line waits for tokens
+                    break
+                qi += 1
+            del queue[:qi]
+            m = len(take)
+
+        # --- admit one micro-batch into recycled slots
+        if m:
+            t_a = pc()
+            slots_np = np.full(a_cap, c, np.int64)
+            keys_np = np.zeros((a_cap, N_LIMBS), np.uint32)
+            for j, ri in enumerate(take):
+                slot = free.pop()
+                slots_np[j] = slot
+                occupied[slot] = ri
+                admit_wall[ri] = now
+            keys_np[:m] = keys[np.asarray(take)]
+            origins = origins_of(adm_i)
+            if use_cache:
+                st, hit, h_found, h_hops = engine.admit_probed(
+                    st, keys_np, slots_np, origins, rnd)
+                for j, ri in enumerate(take):
+                    if not hit[j]:
+                        cache_misses += 1
+                        continue
+                    slot = int(slots_np[j])
+                    occupied.pop(slot)
+                    free.append(slot)
+                    rec_req.append(ri)
+                    rec_lat.append(max(0.0,
+                                       now - float(arrival_ts[ri])))
+                    rec_hops.append(0)
+                    rec_rounds.append(0)
+                    rec_found.append(int(h_found[j, 0]) >= 0)
+                    rec_answer.append(h_found[j])
+                    completed += 1
+                    cache_hits += 1
+                    if sig_stage is not None and signed is not None \
+                            and signed[ri]:
+                        sig_pending.append(ri)
+            else:
+                st = engine.admit(st, keys_np, slots_np, origins, rnd)
+            adm_i += 1
+            admitted += m
+            walls["admit"] += pc() - t_a
+
+        # --- degrade policy: one cache probe for over-quota requests
+        if degr:
+            dk = np.zeros((a_cap, N_LIMBS), np.uint32)
+            dk[:len(degr)] = keys[np.asarray(degr)]
+            d_hit, d_found, _d_hops = engine.probe_cache(dk)
+            for j, ri in enumerate(degr):
+                if d_hit[j]:
+                    rec_req.append(ri)
+                    rec_lat.append(max(0.0,
+                                       now - float(arrival_ts[ri])))
+                    rec_hops.append(0)
+                    rec_rounds.append(0)
+                    rec_found.append(int(d_found[j, 0]) >= 0)
+                    rec_answer.append(d_found[j])
+                    admitted += 1
+                    completed += 1
+                    cache_hits += 1
+                    degraded_hits += 1
+                    if sig_stage is not None and signed is not None \
+                            and signed[ri]:
+                        sig_pending.append(ri)
+                else:
+                    shed += 1
+
+        draining = next_ev >= r_total and not queue
+        if draining and not occupied:
+            break
+        if not occupied and not queue:
+            if next_ev < r_total:
+                gap = arrival_ts[next_ev] - (clock() - t0)
+                if gap > 0:
+                    sleep(min(gap, 0.05))
+                continue
+            break
+
+        # --- burst + harvest (the one sync an iteration)
+        t_s = pc()
+        for _ in range(burst):
+            st = engine.step(st, rnd)
+            rnd += 1
+        t_n = pc()
+        done, hops, adm_r, com_r, found = engine.snapshot(st)
+        walls["step"] += t_n - t_s
+        walls["snapshot"] += pc() - t_n
+        w = clock() - t0
+        t_h = pc()
+        marks_r.append(rnd)
+        marks_w.append(w)
+        occ_samples.append(len(occupied) / c)
+
+        fill_k, fill_f, fill_h = [], [], []
+        for slot in [s for s, _ in occupied.items() if done[s]]:
+            ri = occupied.pop(slot)
+            free.append(slot)
+            cr = int(com_r[slot])
+            if cr < 0:
+                expired += 1        # forced retirement, not a completion
+                continue
+            cw = float(np.interp(cr + 1, marks_r[-2:], marks_w[-2:]))
+            cw = max(cw, admit_wall[ri])
+            rec_req.append(ri)
+            rec_lat.append(cw - float(arrival_ts[ri]))
+            rec_hops.append(int(hops[slot]))
+            rec_rounds.append(cr - int(adm_r[slot]) + 1)
+            rec_found.append(int(found[slot, 0]) >= 0)
+            rec_answer.append(found[slot])
+            completed += 1
+            if sig_stage is not None and signed is not None \
+                    and signed[ri]:
+                sig_pending.append(ri)
+            if use_cache:
+                fill_k.append(keys[ri])
+                fill_f.append(found[slot])
+                fill_h.append(int(hops[slot]))
+        if use_cache and fill_k:
+            engine.fill_cache(np.asarray(fill_k), np.asarray(fill_f),
+                              np.asarray(fill_h), rnd)
+        if sig_stage is not None and sig_pending:
+            sig_stage.submit([signed_value_of(ri) if signed_value_of
+                              else ri for ri in sig_pending])
+            sig_submitted += len(sig_pending)
+            sig_pending = []
+
+        # --- expiry: rows past their round budget retire
+        stale = [s for s in occupied
+                 if not done[s] and rnd - int(adm_r[s]) >= cfg.max_steps]
+        if stale:
+            batch = stale[:a_cap]
+            sl = np.full(a_cap, c, np.int64)
+            sl[:len(batch)] = batch
+            st = engine.expire(st, sl)
+            for slot in batch:
+                ri = occupied.pop(slot)
+                free.append(slot)
+                expired += 1
+        walls["harvest"] += pc() - t_h
+        if draining:
+            drain_rounds += burst
+            if drain_rounds > drain_cap:
+                break
+
+    elapsed = clock() - t0
+    if sig_stage is not None and sig_pending:
+        sig_stage.submit([signed_value_of(ri) if signed_value_of
+                          else ri for ri in sig_pending])
+        sig_submitted += len(sig_pending)
+        sig_pending = []
+    return {
+        "slots": c,
+        "admit_cap": a_cap,
+        "burst": burst,
+        "admitted": admitted,
+        "completed": completed,
+        "expired": expired,
+        "in_flight": len(occupied),
+        "never_admitted": len(queue) + (r_total - next_ev),
+        "shed": shed,
+        "cache_hits": cache_hits,
+        "cache_misses": cache_misses,
+        "degraded_hits": degraded_hits,
+        "cache_slots": getattr(engine, "cache_slots", 0),
+        "admission_policy": admission.policy if admission else None,
+        "sig_submitted": sig_submitted,
+        "rounds": rnd,
+        "elapsed_s": elapsed,
+        "sustained_rps": completed / elapsed if elapsed > 0 else 0.0,
+        "request": np.asarray(rec_req, np.int64),
+        "latency_s": np.asarray(rec_lat, np.float64),
+        "hops": np.asarray(rec_hops, np.int64),
+        "service_rounds": np.asarray(rec_rounds, np.int64),
+        "found_nonempty": np.asarray(rec_found, bool),
+        "klass": np.asarray(klass)[np.asarray(rec_req, np.int64)]
+        if completed else np.asarray([], dtype="<U4"),
+        "queue_depth_mean": float(np.mean(queue_depths))
+        if queue_depths else 0.0,
+        "queue_depth_max": int(np.max(queue_depths))
+        if queue_depths else 0,
+        "slot_occupancy_frac": float(np.mean(occ_samples))
+        if occ_samples else 0.0,
+        "burst_marks": list(zip(marks_r, marks_w)),
+        "found": np.asarray(rec_answer, np.int32).reshape(-1, cfg.quorum),
+        "layer_walls_s": walls,
+    }
+
+
+def closed_loop_replay(swarm: Swarm, cfg: SwarmConfig,
+                       targets: torch.Tensor,
+                       generator: torch.Generator | None = None,
+                       engine: ServeEngine | None = None, *,
+                       origins: torch.Tensor | None = None,
+                       device=None) -> tuple[LookupResult, LookupState]:
+    """Feed a fixed batch through the serve engine's admit/step path
+    (slots = L, all admitted at round 0) and run it to completion: the
+    serve twin of ``lookup(swarm, cfg, targets, generator)``, with the
+    same found/hops/done for the same origins — ``origins [L]`` if
+    given, else drawn with ``generator`` (default seeded 0) as
+    ``lookup`` draws them.  Returns ``(LookupResult, final state)``."""
+    l = targets.shape[0]
+    eng = engine if engine is not None \
+        else ServeEngine(swarm, cfg, slots=l, admit_cap=l, device=device)
+    if eng.slots != l or eng.admit_cap < l:
+        raise ValueError(f"closed-loop replay needs slots == L == "
+                         f"admit_cap; engine has slots={eng.slots}, "
+                         f"admit_cap={eng.admit_cap} for L={l}")
+    if origins is None:
+        if generator is None:
+            generator = torch.Generator(device=eng.device).manual_seed(0)
+        origins = eng.draw_origins(generator, l)
+    st = eng.empty()
+    st = eng.admit(st, targets, torch.arange(l), origins, 0)
+    rnd = 0
+    burst = burst_schedule(cfg)
+    while rnd < cfg.max_steps:
+        n = min(burst, cfg.max_steps - rnd)
+        for _ in range(n):
+            st = eng.step(st, rnd)
+            rnd += 1
+        if bool(st.done.all()):         # the one readback a burst
+            break
+        burst = 2
+    res = LookupResult(found=_finalize(swarm.ids, st, cfg),
+                       hops=st.hops, done=st.done)
+    return res, st

@@ -64,6 +64,9 @@ from ..ops.u32 import MASK32, lexsort, mul32
 from ..ops.xor_metric import N_LIMBS
 from .swarm import LookupResult, Swarm, SwarmConfig, lookup, resolve_device
 
+# Rows a get probes at once: bounds the probe's [rows, Q, S, W] planes.
+PROBE_CHUNK = 32768
+
 INT32_MAX = 0x7FFFFFFF
 
 
@@ -612,20 +615,30 @@ def _pick_payload(win: torch.Tensor, pls: torch.Tensor,
     return torch.where(any_hit[:, None], pl, 0)
 
 
+def _sliced_probe(alive: torch.Tensor, cfg: SwarmConfig, store: SwarmStore,
+                  scfg: StoreConfig, found: torch.Tensor, keys: torch.Tensor,
+                  chunk: int = PROBE_CHUNK):
+    """:func:`_get_probe` in ``chunk``-row slices (each row is probed on
+    its own, so the slices give the same rows), bounding its
+    ``[chunk, Q, S, W]`` planes."""
+    parts = [_get_probe(alive, cfg, store, scfg, found[lo:lo + chunk],
+                        keys[lo:lo + chunk])
+             for lo in range(0, keys.shape[0], chunk)]
+    return [torch.cat(x) for x in zip(*parts)]
+
+
 def get_values(swarm: Swarm, cfg: SwarmConfig, store: SwarmStore,
                scfg: StoreConfig, keys: torch.Tensor,
                generator: torch.Generator | None = None,
-               chunk: int = 32768, *, origins: torch.Tensor | None = None,
+               chunk: int = PROBE_CHUNK, *,
+               origins: torch.Tensor | None = None,
                device=None) -> GetResult:
     """Batched get: look up each key ``[P,5]``, return the freshest
     stored value among its closest queried nodes.  The probe runs in
-    ``chunk``-row slices, bounding its ``[chunk, Q, S, W]`` planes."""
+    ``chunk``-row slices."""
     res = lookup(swarm, cfg, keys, generator, origins=origins, device=device)
-    p = keys.shape[0]
-    parts = [_get_probe(swarm.alive, cfg, store, scfg,
-                        res.found[lo:lo + chunk], keys[lo:lo + chunk])
-             for lo in range(0, p, chunk)]
-    hit, val, seq, pl, _ = (torch.cat(x) for x in zip(*parts))
+    hit, val, seq, pl, _ = _sliced_probe(swarm.alive, cfg, store, scfg,
+                                         res.found, keys, chunk)
     return GetResult(hit=hit, val=val, seq=seq, hops=res.hops, done=res.done,
                      payload=pl)
 

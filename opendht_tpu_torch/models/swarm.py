@@ -732,11 +732,23 @@ def _sample_origins(generator: torch.Generator, alive: torch.Tensor,
                     l: int) -> torch.Tensor:
     """A uniform random alive origin per lookup (inverse CDF over the
     alive mask)."""
-    n = alive.shape[0]
+    return _draw_alive(generator, *_alive_cdf(alive), l)
+
+
+def _alive_cdf(alive: torch.Tensor):
+    """The alive mask's prefix sum and its total (read back once)."""
     cum = torch.cumsum(alive.to(torch.int64), dim=0)
-    total = int(cum[-1])
+    return cum, int(cum[-1])
+
+
+def _draw_alive(generator: torch.Generator, cum: torch.Tensor, total: int,
+                l: int) -> torch.Tensor:
+    """``l`` uniform alive nodes from :func:`_alive_cdf`'s ``(cum,
+    total)``: no readback, so a loop that draws often reads the alive
+    count once."""
+    n = cum.shape[0]
     u = torch.randint(0, max(total, 1), (l,), generator=generator,
-                      device=alive.device)
+                      device=cum.device)
     if total == n:
         return u.to(torch.int32)
     return torch.searchsorted(cum, u, right=True).clamp(0, n - 1).to(

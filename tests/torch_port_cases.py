@@ -173,3 +173,113 @@ def fused_case(name, seed, a=FA, k=FK):
                 fi[li, j] = m
     return (tables, targets0, fi, fd, fq, safe_sel, sel_d0, sel_pos, w0,
             q_hit, e_hit)
+
+
+# ---------------------------------------------------------------------------
+# integrity, chunked values and serving: one swarm, one schedule
+# ---------------------------------------------------------------------------
+#
+# The three files share a 512-node swarm (the JAX package builds it from
+# PRNGKey(0), as ``test_torch_storage.py``'s does), one slot width and
+# one admission cap, so the JAX programs compile once per shape.  JAX is
+# imported inside these helpers only.
+
+SERVE_N = 512
+SERVE_SLOTS, SERVE_ADMIT = 64, 32
+
+
+def jax_swarm(n=SERVE_N, seed=0):
+    """The JAX package's swarm and config at ``n`` nodes (cached)."""
+    key = (n, seed)
+    if key not in _JAX_SWARMS:
+        import jax
+        from opendht_tpu.models import swarm as jsw
+        cfg = jsw.SwarmConfig.for_nodes(n)
+        _JAX_SWARMS[key] = (jsw.build_swarm(jax.random.PRNGKey(seed), cfg),
+                            cfg)
+    return _JAX_SWARMS[key]
+
+
+_JAX_SWARMS: dict = {}
+
+
+def port_swarm(sw):
+    """A JAX swarm carried to the port on the CPU."""
+    from opendht_tpu_torch.convert import swarm_from_numpy
+    return swarm_from_numpy(np.asarray(sw.ids), np.asarray(sw.tables),
+                            np.asarray(sw.alive), device="cpu")
+
+
+def port_cfg(cfg):
+    """The port's SwarmConfig equal to a JAX one (``merge_impl`` maps
+    JAX's ``"pallas-round"`` to the port's ``"fused-round"``)."""
+    from opendht_tpu_torch.models.swarm import SwarmConfig
+    kw = cfg._asdict()
+    if kw["merge_impl"] == "pallas-round":
+        kw["merge_impl"] = "fused-round"
+    elif kw["merge_impl"] not in ("auto", "sort", "fused-round"):
+        kw["merge_impl"] = "auto"
+    return SwarmConfig(**kw)
+
+
+def jax_origins(sw, key, l):
+    """JAX's origin draw ``_sample_origins(key, alive, l)`` as a
+    tensor (what ``lookup(…, key)`` and the serve admissions use)."""
+    from opendht_tpu.models import swarm as jsw
+    return torch.from_numpy(np.array(jsw._sample_origins(key, sw.alive, l)))
+
+
+def jax_admission_origins(sw, key, a=SERVE_ADMIT):
+    """The serve loop's ``origins_of`` hook giving admission ``i`` JAX's
+    draw ``_sample_origins(fold_in(key, i), alive, a)``."""
+    import jax
+    memo = {}
+
+    def origins_of(i):
+        if i not in memo:
+            memo[i] = jax_origins(sw, jax.random.fold_in(key, i), a)
+        return memo[i]
+    return origins_of
+
+
+def jax_key_pool(seed, key_pool):
+    """``poisson_zipf_events``' key pool as the JAX package draws it."""
+    import jax
+    import jax.numpy as jnp
+    return np.asarray(jax.random.bits(jax.random.PRNGKey(seed ^ 0x5EED),
+                                      (key_pool, 5), jnp.uint32))
+
+
+def serve_schedule(rate=400.0, duration=0.5, key_pool=64, zipf_s=1.1,
+                   seed=5):
+    """One open-loop schedule from the JAX package: ``(arrival_ts, keys,
+    klass)`` and the key pool it drew."""
+    from opendht_tpu.models.serve import poisson_zipf_events
+    ts, keys, klass = poisson_zipf_events(rate=rate, duration=duration,
+                                          key_pool=key_pool, zipf_s=zipf_s,
+                                          seed=seed)
+    return (ts, np.asarray(keys), klass), jax_key_pool(seed, key_pool)
+
+
+# Keys of the port's serve report that the JAX report lacks: the found
+# heads beside ``request``, and host walls (not a function of the schedule).
+PORT_REPORT_KEYS = {"found", "layer_walls_s"}
+
+
+def assert_reports_same(rj, rt, what):
+    """Every key of JAX's serve report equal in the port's: arrays element
+    for element, scalars and the burst marks exactly (floats included).
+    The port's own keys are exactly ``PORT_REPORT_KEYS``, and its found
+    heads agree with JAX's ``found_nonempty``."""
+    assert set(rt) - set(rj) == PORT_REPORT_KEYS, what
+    assert set(rj) <= set(rt), what
+    found = rt["found"]
+    assert found.dtype == np.int32 and len(found) == rt["completed"], what
+    assert np.array_equal(found[:, 0] >= 0, rj["found_nonempty"]), what
+    for k in rj:
+        a, b = rj[k], rt[k]
+        if isinstance(a, np.ndarray):
+            assert a.dtype == np.asarray(b).dtype, f"{what}: {k} dtype"
+            assert np.array_equal(a, np.asarray(b)), f"{what}: {k}"
+        else:
+            assert a == b, f"{what}: {k} {a!r} != {b!r}"
