@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup engine, its chaos engine, its storage
-plane with chunked values and its serve engine on one CUDA card and hold
-each of its CUDA kernels against its plain PyTorch version.
+plane with chunked values, its serve engines (burst, and resident: one
+CUDA graph a macro step) and its swarm-health monitor on one CUDA card
+and hold each of its CUDA kernels against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with one NVIDIA card and
 the CUDA toolkit:
@@ -104,16 +105,45 @@ Phases (any failure exits non-zero and prints no result line):
    device with 1,048,576 values of 4 × 8 words, verify on and off, the
    same routing in both arms — every torn row missing, no garbled row
    defended, ``root_rejects`` — then churn 0.25 + heal and re-announce
-   sweeps.
+   sweeps;
+14. the resident engine and the monitor, card vs CPU at 4,096 nodes
+   (run after phase 11): macro steps through the card's CUDA graphs
+   against the CPU's early-exit loop (cache off, cache on cold then
+   warm, ``rung_block`` 8, expiry, the fused round with the cache) —
+   every output, state, ring and cache; the resident replay on both
+   engines (equal to ``lookup``); ``serve_resident`` under a virtual
+   clock (cache off, cache on, ``shed``); three monitor sweeps with
+   kills and a heal and a chaos-engine sweep;
+15. the resident path at full width (after phase 12, on the main
+   swarm): ``resident_closed_loop_replay`` of the 1,048,576 targets, one
+   graph of 48 gated trips, on both engines, equal to ``lookup``; the
+   graph against the eager body at the serve shape (2,048 slots, admit
+   cap 512, cache on) on both engines; ``serve_resident`` at ``bench.py
+   --mode serve``'s defaults with ``--serve-engine resident`` (2,048
+   slots, admit cap 512, 2 rounds a macro step, ring 2,048) on both
+   engines, cache on (4,096 slots) and overloaded (20,000 req/s for 2 s,
+   ``shed``) — conservation, the ring identities, no ring shed, one read
+   and one replay a macro step, non-empty answers, recall@8 on 512
+   served keys — one second of each engine under the profiler, and each
+   leg beside the burst engine's on the same schedule;
+16. the monitor at 10M nodes, last (it kills nodes and heals the tables
+   in place): ``bench.py --mode monitor``'s defaults (12 sweeps, period
+   4, fresh_ttl 2, stale threshold 0.25, miss limit 2, kill 0.05 a sweep
+   + heal), depth 22 (sweep 0 crawls 4,194,304 buckets), K1 engine —
+   each sweep's identities, the lag bound, done 1.0; coverage, lag,
+   freshness, hop fidelity and density.
 
 Prints the ``ptxas`` lines of every kernel (registers, shared memory,
 spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
 ``kernel_times``, ``k3_times``, ``chaos_leg``, ``chaos_path``,
 ``storage_path``, ``serve_replay``, ``serve_leg``, ``serve_signed``,
-``serve_path``, ``serve_kernel_times`` and ``chunked_path`` lines, a
-``kernels`` JSON line (each row with its launches on every path, K1's
-and K2's with their times at the serve shape), the card line, and last
-``{"ok": true, "device": {...}}``.
+``serve_path``, ``serve_kernel_times``, ``resident_replay``,
+``resident_leg``, ``resident_path``, ``resident_profile``,
+``resident_vs_burst``, ``chunked_path``, ``monitor_sweep`` and
+``monitor_path`` lines, a ``kernels`` JSON line (each row with its
+launches on every path — a graph replay counts the kernels its capture
+recorded — K1's and K2's with their times at the serve shape), the card
+line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -134,6 +164,7 @@ N_LOOKUPS = 1 << 20
 N_RECALL = 512
 TIMED_RUNS = 2
 K3_CHECK_NODES = 1 << 20    # phase 3's K3 / K3′ checks
+MONITOR_SWEEPS = 12         # bench.py --mode monitor's default
 
 # Published H100 SXM peaks (NVIDIA data sheet) used for the bounds: HBM
 # bandwidth, and the float32 rate outside the tensor cores as the rate
@@ -917,12 +948,17 @@ def layer_times(sw, swarm, cfg, targets, gen) -> dict:
     return out
 
 def same_tensors(a, b) -> bool:
-    """Exact equality of two results: tensors, ``None``, numbers and
-    (named) tuples of them, a card result against a CPU one."""
+    """Exact equality of two results: tensors, numpy arrays, ``None``,
+    numbers and (named) tuples of them, a card result against a CPU
+    one."""
     import torch
+    import numpy as np
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
                 and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and np.array_equal(a, b))
     if isinstance(a, (tuple, list)):
         return (isinstance(b, (tuple, list)) and len(a) == len(b)
                 and all(same_tensors(x, y) for x, y in zip(a, b)))
@@ -1721,13 +1757,11 @@ def phase_serve_full(sw, swarm, cfg, targets, origins, res, card, failures):
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        syncs, sites = sync_sites(caught)
         lines, first = inspect.getsourcelines(sv._fetch)
         in_fetch = sum(os.path.samefile(w.filename, sv.__file__)
                        and first <= w.lineno < first + len(lines)
                        for w in syncs)
-        sites = collections.Counter(
-            f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs)
         bursts = len(rep["burst_marks"]) - 1
         out = {"engine": c.merge_impl, "cache_slots": cache_slots,
                "admission": admission.policy if admission else None,
@@ -1735,7 +1769,7 @@ def phase_serve_full(sw, swarm, cfg, targets, origins, res, card, failures):
                "layer_walls_s": rep["layer_walls_s"],
                "host_syncs": len(syncs),
                "host_syncs_in_readback": in_fetch,
-               "host_sync_sites": dict(sites), "bursts": bursts}
+               "host_sync_sites": sites, "bursts": bursts}
         # With the cache off the readbacks are the snapshots: one a burst
         # and one in the warm pass; any other synchronizing call must be
         # a one-off (a first pinned-memory or device allocation), not one
@@ -1744,7 +1778,7 @@ def phase_serve_full(sw, swarm, cfg, targets, origins, res, card, failures):
                                 or len(syncs) - in_fetch > 4):
             failures.append(f"serve leg {name}: {len(syncs)} synchronizing "
                             f"calls ({in_fetch} readbacks) for {bursts} "
-                            f"bursts: {dict(sites)}")
+                            f"bursts: {sites}")
         if cache_slots:
             out["cache_hit_frac"] = rep["cache_hits"] / max(1,
                                                             rep["admitted"])
@@ -1818,16 +1852,17 @@ def phase_serve_full(sw, swarm, cfg, targets, origins, res, card, failures):
         if launches[k_name] <= 0:
             failures.append(f"{k_name} was not launched on the serve path")
     short = sv.poisson_zipf_events(2000.0, 1.0, 4096, 1.1, seed=10)
+    profiles = {}
     for name, c in (("k1_engine", cfg), ("fused_engine", cfg_f)):
-        log("serve_profile " + json.dumps({
-            "leg": name, **profile_serve(sv, swarm, c, short),
-            "card": card}))
+        profiles[name] = profile_serve(sv, swarm, c, short)
+        log("serve_profile " + json.dumps({"leg": name, **profiles[name],
+                                           "card": card}))
 
     # K1 and K2 on a real mid-run serve state (2,048 slots).
     st = captured
     if st is None:
         failures.append("no serve leg reached the capture round")
-        return launches, {}
+        return launches, {}, legs, profiles
     r = capture_round
     adm = st.admitted_round
     comp = {"rows": int(adm.shape[0]),
@@ -1857,7 +1892,7 @@ def phase_serve_full(sw, swarm, cfg, targets, origins, res, card, failures):
     if comp["pending_rows"] == 0 or comp["done_rows"] == 0:
         failures.append(f"the captured serve state is not mid-run: {comp}")
     del st, m_args, f_args, keys_t
-    return launches, {"merge_round": k1, "fused_round": k2}
+    return launches, {"merge_round": k1, "fused_round": k2}, legs, profiles
 
 
 def phase_chunked_full(sw, swarm, cfg_f, card, failures):
@@ -2100,6 +2135,556 @@ def phase_chunked_full(sw, swarm, cfg_f, card, failures):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the resident serve engine (a CUDA graph a macro step) and the
+# swarm-health monitor
+# ---------------------------------------------------------------------------
+
+def snapshot(*carries):
+    """CPU copies of tensors and (named) tuples of them: the card engine
+    updates its graph's static carries in place."""
+    import torch
+    out = []
+    for c in carries:
+        if c is None or isinstance(c, torch.Tensor):
+            out.append(None if c is None else c.detach().cpu().clone())
+        else:
+            out.append(type(c)(*snapshot(*c)) if hasattr(c, "_fields")
+                       else tuple(snapshot(*c)))
+    return out
+
+
+def macro_plan(gen, n_nodes, a, pool_size, steps):
+    """Enqueue batches for ``steps`` macro steps: keys from a small pool
+    (so a cache hits), request ids, classes, origins and ``n_new``."""
+    import torch
+    pool = torch.randint(0, 2**32, (pool_size, 5), generator=gen)
+    sizes = [a, a, (2 * a) // 3, 0, a, a // 6, 0, 0]
+    plan = []
+    for s in range(steps):
+        plan.append((pool[torch.randint(0, pool_size, (a,), generator=gen)],
+                     torch.arange(s * a, (s + 1) * a, dtype=torch.int32),
+                     (torch.arange(a, dtype=torch.int32) % 2),
+                     torch.randint(0, n_nodes, (a,), generator=gen,
+                                   dtype=torch.int32),
+                     sizes[s % len(sizes)]))
+    return plan
+
+
+def drive_macro(eng, plan):
+    """Run ``plan`` through ``eng.macro_step``: each step's output (numpy)
+    and CPU copies of the state, rings and cache after it."""
+    st, rings = eng.empty(), eng.empty_rings()
+    seq = []
+    for s, (k, r, c, og, n_new) in enumerate(plan):
+        st, rings, out = eng.macro_step(st, rings, k.numpy(), r.numpy(),
+                                        c.numpy(), og.numpy(), n_new,
+                                        s * eng.rounds_per_iter)
+        seq.append((eng.read_out(out), *snapshot(st, rings, eng.cache)))
+    return seq
+
+
+def phase_resident_monitor_card_vs_cpu(dev, failures) -> None:
+    """The resident engine and the monitor, card vs CPU at 4,096 nodes:
+    macro steps (cache off, cache on cold then warm, rung_block 8, a
+    step that expires rows) through the card's graphs against the CPU's
+    early-exit loop — every output, state, ring and cache; the resident
+    replay on both engines; ``serve_resident`` under a virtual clock
+    (cache off, cache on, ``shed``); three monitor sweeps with kills and
+    a heal and a chaos-engine sweep — records and freshness plane."""
+    import torch
+    from opendht_tpu_torch.models import monitor as mon
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.models import swarm as sw
+
+    n = 4096
+    cfg = sw.SwarmConfig.for_nodes(n, device="cpu")
+    gen = torch.Generator().manual_seed(21)
+    base = sw.churn(sw.build_swarm(cfg, gen, device="cpu"), gen, 0.1, cfg)
+    card_sw = base.to(dev)
+    slots, a = 256, 64
+    plan = macro_plan(gen, n, a, 48, 8)
+    forms = {"cache off": dict(), "cache on (cold, then warm)":
+             dict(cache_slots=128), "rung_block 8": dict(rung_block=8),
+             "expiry (max_steps 2)": dict(max_steps=2),
+             "fused round, cache on": dict(cache_slots=128,
+                                           merge_impl="fused-round")}
+    for name, kw in forms.items():
+        kw = dict(kw)
+        c = cfg._replace(max_steps=kw.pop("max_steps", 48),
+                         merge_impl=kw.pop("merge_impl", "auto"))
+        seqs = {}
+        for where, s_, d in (("cpu", base, "cpu"), ("card", card_sw, dev)):
+            eng = sv.ResidentServeEngine(s_, c, slots=slots, admit_cap=a,
+                                         device=d, **kw)
+            seqs[where] = drive_macro(eng, plan)
+        same = same_tensors(seqs["cpu"], seqs["card"])
+        outs = [x[0] for x in seqs["cpu"]]
+        log(f"resident macro steps card (graph) vs CPU, {n} nodes, {name}: "
+            f"{'equal' if same else 'DIFFERENT'} (8 steps: every output, "
+            f"state, ring and cache; admitted "
+            f"{sum(int(o.adm) for o in outs)}, hits "
+            f"{sum(int(o.hits) for o in outs)}, expired "
+            f"{sum(int((o.comp & (o.comp_com < 0)).sum()) for o in outs)}, "
+            f"rung counts {sum(o.rung_counts for o in outs).tolist()})")
+        if not same:
+            failures.append(f"resident macro steps differ card vs CPU "
+                            f"({name})")
+    tg = torch.randint(0, 2**32, (256, 5), generator=gen)
+    og = sw._sample_origins(gen, base.alive, 256)
+    for impl in ("auto", "fused-round"):
+        c = cfg._replace(merge_impl=impl)
+        outs = {w: sv.resident_closed_loop_replay(
+            s_, c, tg.to(d), origins=og.to(d), device=d)
+            for w, s_, d in (("cpu", base, "cpu"), ("card", card_sw, dev))}
+        look = sw.lookup(base, c, tg, origins=og, device="cpu")
+        same = same_tensors(outs["cpu"], outs["card"])
+        log(f"resident_closed_loop_replay card vs CPU ({impl}): "
+            f"{'equal' if same else 'DIFFERENT'}; equals lookup: "
+            f"{same_tensors(look, outs['cpu'][0])}")
+        if not same or not same_tensors(look, outs["cpu"][0]):
+            failures.append(f"resident replay ({impl}) differs card vs CPU "
+                            f"or from lookup")
+
+    memo = {}
+
+    def origins_of(i):
+        if i not in memo:
+            memo[i] = sw._sample_origins(
+                torch.Generator().manual_seed(2000 + i), base.alive, a)
+        return memo[i]
+
+    sched = sv.poisson_zipf_events(2000.0, 0.5, 256, 1.1, seed=7)
+    over = sv.poisson_zipf_events(20000.0, 0.2, 256, 1.1, seed=8)
+    runs = {"cache off": (sched, 0, None), "cache on (512 slots)":
+            (sched, 512, None), "shed under overload":
+            (over, 0, lambda: sv.AdmissionControl(rate=3000,
+                                                   policy="shed"))}
+    for name, (s_sched, cs, adm) in runs.items():
+        reps = {}
+        for where, s_, d in (("cpu", base, "cpu"), ("card", card_sw, dev)):
+            eng = sv.ResidentServeEngine(s_, cfg, slots=slots, admit_cap=a,
+                                         cache_slots=cs, device=d)
+            clock, sleep = virtual_clock()
+            reps[where] = sv.serve_resident(
+                eng, s_sched[0], s_sched[1], klass=s_sched[2], clock=clock,
+                sleep=sleep, admission=adm() if adm else None,
+                overload_queue_factor=1 if adm else 8,
+                origins_of=origins_of)
+        r = reps["cpu"]
+        same = same_report(r, reps["card"])
+        log(f"serve_resident card vs CPU, {n} nodes, {name}: "
+            f"{'equal' if same else 'DIFFERENT'} (every report array and "
+            f"scalar and the resident block, virtual clock; admitted "
+            f"{r['admitted']}, completed {r['completed']}, shed {r['shed']}, "
+            f"cache hits {r['cache_hits']}, macro steps "
+            f"{r['resident']['iterations']})")
+        if not same:
+            failures.append(f"card and CPU resident reports differ ({name})")
+        if not conserved(r) or r["resident"]["ring_shed"]:
+            failures.append(f"serve_resident at {n} nodes ({name}): "
+                            f"conservation or a ring shed")
+
+    # The monitor: three sweeps with kills and a heal, then a chaos sweep.
+    mcfg = mon.MonitorConfig.for_nodes(n)
+    # heal refills the tables in place: each engine heals its own copy.
+    engs = {"cpu": mon.MonitorEngine(base._replace(tables=base.tables.clone()),
+                                     cfg, mcfg, device="cpu"),
+            "card": mon.MonitorEngine(base.to(dev), cfg, mcfg, device=dev)}
+    recs = {"cpu": [], "card": []}
+    same = True
+    for s in range(3):
+        if s:
+            u = torch.rand((n,), generator=gen)
+            hd = [torch.rand((n, cfg.bucket_k), generator=gen)
+                  for _ in range(cfg.n_buckets)]
+            for where, e in engs.items():
+                e.kill(0.05, u)
+                e.heal(lambda b, e=e: hd[b].to(e.device))
+        og = sw._sample_origins(gen, engs["cpu"].swarm.alive,
+                                len(engs["cpu"].select_buckets()))
+        for where, e in engs.items():
+            rec, res = e.sweep(origins=og)
+            recs[where].append((rec, snapshot(res, e.fresh)))
+    for (ra, ta), (rb, tb) in zip(recs["cpu"], recs["card"]):
+        same = same and ra == rb and same_tensors(ta, tb)
+    byz = torch.rand((n,), generator=gen) < 0.05
+    chaos = {}
+    for where, s_, d in (("cpu", base, "cpu"), ("card", card_sw, dev)):
+        e = mon.MonitorEngine(sw.corrupt_swarm(s_, None, 0.0, cfg,
+                                               mask=byz.to(d)), cfg, mcfg,
+                              faults=sw.LookupFaults(seed=11), device=d)
+        honest = base.alive & ~byz
+        rec, res = e.sweep(origins=sw._sample_origins(
+            torch.Generator().manual_seed(5), honest, 1 << mcfg.depth))
+        chaos[where] = (rec, snapshot(res, e.fresh))
+    same_c = (chaos["cpu"][0] == chaos["card"][0]
+              and same_tensors(chaos["cpu"][1], chaos["card"][1]))
+    last = recs["cpu"][-1][0]
+    log(f"monitor card vs CPU, {n} nodes: 3 sweeps with kills and a heal "
+        f"{'equal' if same else 'DIFFERENT'}, a chaos-engine sweep "
+        f"{'equal' if same_c else 'DIFFERENT'} (records, lookups, freshness "
+        f"plane; last sweep coverage {last['coverage']}, lag_count "
+        f"{last['lag_count']}; chaos sweep coverage "
+        f"{chaos['cpu'][0]['coverage']})")
+    if not (same and same_c):
+        failures.append("the monitor differs card vs CPU")
+
+
+def sync_sites(caught):
+    """The synchronizing-call warnings among ``caught`` and their count
+    by ``file:line``."""
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    return syncs, dict(collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs))
+
+
+def profile_resident(sv, swarm, cfg, sched, top: int = 10) -> dict:
+    """One second of ``serve_resident`` (2,048 slots, admit cap 512, real
+    clock) under ``torch.profiler``: the device's busy share, kernels a
+    macro step on the device, and the host's launch calls a macro step
+    (graph launches, kernel launches, copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ts_, keys, klass = sched
+    eng = sv.ResidentServeEngine(swarm, cfg, slots=2048, admit_cap=512)
+    eng.warm_resident()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = sv.serve_resident(
+            eng, ts_, keys, torch.Generator(device=swarm.ids.device)
+            .manual_seed(3), klass=klass)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels_ms, dev_events, host_calls = {}, 0, collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_events += 1
+            kernels_ms[ev.name] = (kernels_ms.get(ev.name, 0.0)
+                                   + ev.time_range.elapsed_us() / 1e3)
+        elif ev.name.startswith("cuda") and ev.name in (
+                "cudaGraphLaunch", "cudaLaunchKernel", "cudaMemcpyAsync",
+                "cudaEventRecord", "cudaEventSynchronize",
+                "cudaStreamSynchronize"):
+            host_calls[ev.name] += 1
+    busy = sum(kernels_ms.values())
+    iters = rep["resident"]["iterations"]
+    ranked = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms if wall_ms else None,
+            "macro_steps": iters, "device_events": dev_events,
+            "device_events_per_macro_step": dev_events / max(1, iters),
+            "host_calls": dict(host_calls),
+            "host_calls_per_macro_step": {
+                k: v / max(1, iters) for k, v in host_calls.items()},
+            "top_kernels_ms": [[n[:90], ms] for n, ms in ranked]}
+
+
+def phase_resident_full(sw, swarm, cfg, targets, origins, res, card,
+                        failures, burst_legs, burst_profiles):
+    """The resident path on the main swarm: ``resident_closed_loop_replay``
+    of the main path's 1,048,576 targets through a graph of 48 gated
+    trips on both engines (equal to ``lookup`` from the same origins);
+    graph = eager at the serve shape on both engines; ``serve_resident``
+    at ``bench.py --mode serve``'s defaults with ``--serve-engine
+    resident`` (2,048 slots, admit cap 512, 2 rounds a macro step, ring
+    4 × 512) on both engines, cache on (4,096 slots) and an overload leg
+    (20,000 req/s for 2 s, ``shed`` at 5,000 req/s a class); one second
+    of each engine under the profiler; each leg beside the burst
+    engine's on the same schedule.  Returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.obs.timeline import resident_summary
+    from opendht_tpu_torch.ops import kernels
+
+    dev = swarm.ids.device
+    cfg_f = cfg._replace(merge_impl="fused-round")
+    l = targets.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    replay = {}
+    for impl, c in (("auto", cfg), ("fused-round", cfg_f)):
+        eng = sv.ResidentServeEngine(swarm, c, slots=l, admit_cap=l,
+                                     ring_slots=2 * l)
+        t0 = time.perf_counter()
+        rr, st, out = sv.resident_closed_loop_replay(
+            swarm, c, targets, origins=origins, engine=eng)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rr, st, out = sv.resident_closed_loop_replay(
+            swarm, c, targets, origins=origins, engine=eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = all(torch.equal(x, y) for x, y in zip(rr, res))
+        graph = eng.graphs.get((False, cfg.max_steps, False))
+        if graph is None:
+            failures.append(f"the resident replay ({impl}) ran no graph")
+        replay[impl] = {
+            "capture_and_first_replay_s": first, "replay_wall_s": wall,
+            "lookups_per_s": l / wall, "equals_lookup": same,
+            "rounds_run": int(out.rounds_run), "gated_trips": cfg.max_steps,
+            "graph_launches": graph and graph["launches"],
+            "replays": eng.replays,
+            "readbacks": eng.readbacks}
+        if not same:
+            failures.append(f"resident replay ({impl}) differs from lookup "
+                            f"at full width")
+        del rr, st, out, eng, graph
+        torch.cuda.synchronize()
+    replay["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    log("resident_replay " + json.dumps({"n_lookups": l, **replay,
+                                         "card": card}))
+
+    ts_, keys, klass = sv.poisson_zipf_events(2000.0, 5.0, 4096, 1.1, seed=7)
+
+    # Graph = eager at the serve shape: the schedule's first keys.
+    gen = torch.Generator().manual_seed(31)
+    plan = [(torch.from_numpy(keys[np.arange(s * 512, (s + 1) * 512)
+                                   % len(keys)].astype(np.int64)),
+             torch.arange(s * 512, (s + 1) * 512, dtype=torch.int32),
+             torch.zeros(512, dtype=torch.int32),
+             torch.randint(0, N_NODES, (512,), generator=gen,
+                           dtype=torch.int32), n_new)
+            for s, n_new in enumerate([512, 512, 300, 0, 512, 0])]
+    for impl, c in (("auto", cfg), ("fused-round", cfg_f)):
+        eng = sv.ResidentServeEngine(swarm, c, slots=2048, admit_cap=512,
+                                     cache_slots=4096)
+        graph_seq = drive_macro(eng, plan)
+        e_st, e_rings = eng.empty(), eng.empty_rings()
+        e_cache = sv.empty_result_cache(c, 4096)
+        eager_seq = []
+        for s, (k, r, cl, og, n_new) in enumerate(plan):
+            e_st, e_rings, e_cache, o = sv._resident_step_cached(
+                swarm, c, e_st, e_rings, e_cache, k.to(dev), r.to(dev),
+                cl.to(dev), og.to(dev), n_new, 2 * s, rounds=2)
+            eager_seq.append((sv.ResidentOut(*[x.cpu().numpy() for x in o]),
+                              *snapshot(e_st, e_rings, e_cache)))
+        same = same_tensors(graph_seq, eager_seq)
+        log(f"resident graph vs eager at the serve shape ({impl}, 2,048 "
+            f"slots, admit cap 512, cache 4,096, 6 macro steps): "
+            f"{'equal' if same else 'DIFFERENT'} (every output, state, "
+            f"ring and cache; completed "
+            f"{sum(int(x[0].comp.sum()) for x in graph_seq)}, hits "
+            f"{sum(int(x[0].hits) for x in graph_seq)})")
+        if not same:
+            failures.append(f"resident graph differs from the eager body "
+                            f"({impl})")
+        del eng
+
+    legs = {}
+
+    def leg(name, c, sched=(ts_, keys, klass), cache_slots=0,
+            admission=None, duration=None):
+        s_ts, s_keys, s_klass = sched
+        eng = sv.ResidentServeEngine(swarm, c, slots=2048, admit_cap=512,
+                                     cache_slots=cache_slots)
+        eng.warm_resident()          # the capture, off the sync count
+        gen = torch.Generator(device=dev).manual_seed(3)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rep = sv.serve_resident(
+                    eng, s_ts, s_keys, gen, klass=s_klass,
+                    duration=duration or float(s_ts[-1]) + 1e-9,
+                    admission=admission)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs, sites = sync_sites(caught)
+        r = rep["resident"]
+        graph = eng.graphs.get((bool(cache_slots), 2, True))
+        if graph is None:
+            failures.append(f"resident leg {name} ran no graph")
+        out = {"engine": c.merge_impl, "cache_slots": cache_slots,
+               "admission": admission.policy if admission else None,
+               "requests": len(s_ts), **serve_summary(rep),
+               "resident": resident_summary(rep),
+               "ring_enqueued": r["ring_enqueued"],
+               "ring_backlog_final": r["ring_backlog_final"],
+               "ring_depth_max": r["ring_depth_max"],
+               "layer_walls_s": rep["layer_walls_s"],
+               "readbacks": eng.readbacks, "replays": eng.replays,
+               "kernel_launches_per_macro_step": graph and graph["launches"],
+               "other_host_syncs": len(syncs), "host_sync_sites": sites}
+        if cache_slots:
+            out["cache_hit_frac"] = rep["cache_hits"] / max(1,
+                                                            rep["admitted"])
+        out["found_head_empty"] = int((~rep["found_nonempty"]).sum())
+        out["found_set_empty"] = int((rep["found"] < 0).all(1).sum())
+        ring_ok = (r["ring_enqueued"] == rep["admitted"]
+                   + r["ring_backlog_final"] + r["ring_shed"]
+                   and r["ring_backlog_final"] <= rep["never_admitted"]
+                   and r["ring_depth_max"] <= r["ring_slots"]
+                   and r["ring_depth_mean"] <= r["ring_depth_max"] + 1e-9)
+        if not (conserved(rep) and ring_ok and r["ring_shed"] == 0
+                and out["found_set_empty"] == 0
+                and len(rep["found"]) == rep["completed"]):
+            failures.append(f"resident leg {name}: conservation, the ring "
+                            f"identities, a ring shed or an empty answer")
+        if eng.readbacks != r["iterations"] or eng.replays != r[
+                "iterations"] or len(syncs) > 4:
+            failures.append(f"resident leg {name}: {eng.readbacks} reads "
+                            f"and {eng.replays} replays for "
+                            f"{r['iterations']} macro steps, other syncs "
+                            f"{sites}")
+        if rep["completed"]:
+            first = np.argsort(rep["request"], kind="stable")[:N_RECALL]
+            sample = rep["request"][first]
+            found = torch.from_numpy(rep["found"][first]).to(dev)
+            tk = torch.from_numpy(s_keys[sample].astype(np.int64)).to(dev)
+            out["recall_at_8"] = recall_at(sw.true_closest(swarm, c, tk),
+                                           found)
+            out["recall_sample"] = len(sample)
+            if out["recall_at_8"] < 0.99:
+                failures.append(f"resident leg {name}: recall@8 "
+                                f"{out['recall_at_8']}")
+        legs[name] = out
+        log("resident_leg " + json.dumps({"leg": name, **out, "card": card}))
+        del eng
+        return rep
+
+    leg("k1_engine", cfg)
+    leg("fused_engine", cfg_f)
+    leg("cache_on", cfg, cache_slots=4096)
+    over = sv.poisson_zipf_events(20000.0, 2.0, 4096, 1.1, seed=8)
+    rep = leg("overload_shed", cfg, sched=over,
+              admission=sv.AdmissionControl(rate=5000, policy="shed"))
+    if rep["shed"] <= 0:
+        failures.append("the resident overload leg shed nothing")
+    if rep["admitted"] + rep["shed"] + rep["never_admitted"] != len(over[0]):
+        failures.append("the resident overload leg lost requests")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log("resident_path " + json.dumps({
+        "launches": launches,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "card": card}))
+    for k_name in ("merge_round", "fused_round", "nearest_k_ids"):
+        if launches[k_name] <= 0:
+            failures.append(f"{k_name} was not launched on the resident "
+                            f"path")
+    short = sv.poisson_zipf_events(2000.0, 1.0, 4096, 1.1, seed=10)
+    profiles = {}
+    for name, c in (("k1_engine", cfg), ("fused_engine", cfg_f)):
+        profiles[name] = profile_resident(sv, swarm, c, short)
+        log("resident_profile " + json.dumps({"leg": name,
+                                              **profiles[name],
+                                              "card": card}))
+    keys_cmp = ("sustained_rps", "p50_latency_s", "p95_latency_s",
+                "p99_latency_s", "elapsed_s", "rounds")
+    for name in ("k1_engine", "fused_engine", "cache_on", "overload_shed"):
+        b, r = burst_legs.get(name, {}), legs[name]
+        row = {"leg": name,
+               "burst": {k: b.get(k) for k in keys_cmp + ("bursts",)},
+               "resident": {k: r.get(k) for k in keys_cmp},
+               "resident_macro_steps": r["resident"]["iterations"],
+               # Marks are stamped when a dispatch returns (as JAX's
+               # loop stamps them), so a completion is seen on the host
+               # up to about one macro interval after its wall.
+               "resident_macro_interval_ms": 1e3 * r["elapsed_s"]
+               / max(1, r["resident"]["iterations"]),
+               "resident_device_rounds": r["resident"]["device_rounds"],
+               "host_orchestration_frac":
+                   r["resident"]["host_orchestration_frac"],
+               "overlap_frac": r["resident"]["overlap_frac"]}
+        if name in profiles:
+            bp, rp = burst_profiles.get(name, {}), profiles[name]
+            row["burst_profile"] = {
+                "device_busy_share": bp.get("device_busy_share"),
+                "device_launches_per_burst":
+                    bp.get("device_launches_per_burst")}
+            row["resident_profile"] = {
+                "device_busy_share": rp["device_busy_share"],
+                "device_events_per_macro_step":
+                    rp["device_events_per_macro_step"],
+                "host_calls_per_macro_step":
+                    rp["host_calls_per_macro_step"]}
+        log("resident_vs_burst " + json.dumps({**row, "card": card}))
+    return launches
+
+
+def phase_monitor_full(sw, swarm, cfg, card, failures):
+    """The monitor at 10M nodes, ``bench.py --mode monitor``'s defaults
+    (12 sweeps, period 4, fresh_ttl 2, stale threshold 0.25, miss limit
+    2, kill 0.05 a sweep + heal) on the K1 engine, depth 22 (sweep 0
+    crawls 4,194,304 buckets): every sweep's conservation identities,
+    the lag bound and done 1.0; coverage, lag, freshness, lookups and
+    wall a sweep, hop fidelity and density.  It kills nodes and heals the
+    tables in place, so it runs last.  Returns its launch counts."""
+    import torch
+    from opendht_tpu_torch.models import monitor as mon
+    from opendht_tpu_torch.obs import health
+    from opendht_tpu_torch.ops import kernels
+
+    dev = swarm.ids.device
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    mcfg = mon.MonitorConfig.for_nodes(N_NODES, period=4, fresh_ttl=2,
+                                       stale_threshold=0.25, miss_limit=2)
+    eng = mon.MonitorEngine(swarm, cfg, mcfg)
+    bound_ = mcfg.detection_lag_bound
+    gen = torch.Generator(device=dev).manual_seed(13)
+    prev_alive = 0
+    walls = []
+    for s in range(MONITOR_SWEEPS):
+        t0 = time.perf_counter()
+        if s:
+            eng.kill(0.05, gen)
+            eng.heal(gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec, res = eng.sweep(gen)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t1
+        rec["churn_heal_s"] = t1 - t0
+        walls.append(rec["wall_s"])
+        log("monitor_sweep " + json.dumps(rec))
+        ok = (rec["tracked_alive"] == prev_alive + rec["newly_discovered"]
+              + rec["resurrected"] - rec["newly_dead"]
+              and rec["probed_tracked"] == rec["probed_seen"]
+              + rec["probed_missed"]
+              and rec["nodes_fresh"] == rec["nodes_seen"]
+              and (not rec["lag_count"] or rec["lag_max"] <= bound_)
+              and rec["done_frac"] == 1.0)
+        if not ok:
+            failures.append(f"monitor sweep {s}: an identity, the lag bound "
+                            f"{bound_} or done 1.0 fails: {rec}")
+        prev_alive = rec["tracked_alive"]
+        del res
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    summary = health.summarize_sweeps(eng.records)
+    fid = health.hop_fidelity(eng.hop_hist_initial, eng.initial_alive,
+                              bucket_k=cfg.bucket_k, alpha=cfg.alpha,
+                              quorum=cfg.quorum)
+    dens = health.poisson_density_profile(eng.bucket_counts[0])
+    log("monitor_path " + json.dumps({
+        "n_nodes": N_NODES, "depth": mcfg.depth, "buckets": eng.n_buckets,
+        "sweeps": MONITOR_SWEEPS, "detection_lag_bound": bound_,
+        **summary, "lookups_per_sweep": [r["lookups"] for r in eng.records],
+        "sweep_wall_s": walls, "hop_fidelity": fid,
+        "density_tv": dens["tv"], "density_mean": dens["mean_per_bucket"],
+        "launches": launches,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "card": card}))
+    if launches["merge_round"] <= 0:
+        failures.append("merge_round was not launched on the monitor path")
+    if not summary["deaths_detected"]:
+        failures.append("the monitor detected no death")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2128,6 +2713,7 @@ def main() -> int:
     phase_card_vs_cpu(dev, failures)
     phase_chaos_storage_card_vs_cpu(dev, failures)
     phase_serve_chunked_card_vs_cpu(dev, failures)
+    phase_resident_monitor_card_vs_cpu(dev, failures)
 
     # ---- the main path -------------------------------------------------
     cfg = sw.SwarmConfig.for_nodes(N_NODES)
@@ -2229,12 +2815,18 @@ def main() -> int:
     launches_s = phase_storage_full(sw, swarm, cfg_f, card, failures)
 
     # ---- the serve engine and chunked values ----------------------------
-    launches_v, serve_times = phase_serve_full(sw, swarm, cfg, targets,
-                                               origins, res, card, failures)
+    launches_v, serve_times, burst_legs, burst_profiles = phase_serve_full(
+        sw, swarm, cfg, targets, origins, res, card, failures)
+    launches_r = phase_resident_full(sw, swarm, cfg, targets, origins, res,
+                                     card, failures, burst_legs,
+                                     burst_profiles)
     launches_k = phase_chunked_full(sw, swarm, cfg_f, card, failures)
+    # The monitor kills nodes and heals the tables in place: last.
+    launches_m = phase_monitor_full(sw, swarm, cfg, card, failures)
     by_path = {"main": launches, "fused": launches_f, "chaos": launches_c,
                "storage": launches_s, "serve": launches_v,
-               "chunked": launches_k}
+               "resident": launches_r, "chunked": launches_k,
+               "monitor": launches_m}
     for row in kernel_rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

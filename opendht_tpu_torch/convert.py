@@ -1,8 +1,8 @@
 """Carry swarm and lookup state across from the JAX package.
 
 The JAX engine's ``Swarm``, ``LookupState`` (a serve state too),
-``SwarmStore`` and the serve engine's ``ResultCache`` are pytrees of
-arrays;
+``SwarmStore``, the serve engine's ``ResultCache`` and ``ServeRings``
+and the monitor's ``FreshnessState`` are pytrees of arrays;
 passed here as numpy arrays, they become the port's tensors on the
 chosen device (the card unless the caller asks for the CPU, as every
 entry point resolves it), so both packages then compute on the same state — the
@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.serve import ResultCache
+from .models.monitor import FreshnessState
+from .models.serve import ResultCache, ServeRings
 from .models.storage import SwarmStore
 from .models.swarm import LookupState, LookupTrace, Swarm, resolve_device
 
@@ -112,3 +113,25 @@ def cache_from_numpy(*fields, device=None) -> ResultCache:
         raise ValueError(f"a ResultCache has {len(ResultCache._fields)} "
                          f"fields, got {len(fields)}")
     return ResultCache(*[_field(np.asarray(x), device) for x in fields])
+
+
+def rings_from_numpy(*fields, device=None) -> ServeRings:
+    """A JAX ``ServeRings`` as numpy arrays, in field order → the port's
+    rings (the ring's uint32 key limbs widen to int64, the counters
+    stay int32)."""
+    device = resolve_device(device)
+    if len(fields) != len(ServeRings._fields):
+        raise ValueError(f"a ServeRings has {len(ServeRings._fields)} "
+                         f"fields, got {len(fields)}")
+    return ServeRings(*[_field(np.asarray(x), device) for x in fields])
+
+
+def freshness_from_numpy(*fields, device=None) -> FreshnessState:
+    """A JAX ``FreshnessState`` as numpy arrays, in field order → the
+    port's freshness plane (``[N]`` int32 each)."""
+    device = resolve_device(device)
+    if len(fields) != len(FreshnessState._fields):
+        raise ValueError(f"a FreshnessState has "
+                         f"{len(FreshnessState._fields)} fields, got "
+                         f"{len(fields)}")
+    return FreshnessState(*[_tensor(x, np.int32, device) for x in fields])

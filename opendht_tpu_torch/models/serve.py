@@ -38,6 +38,12 @@ admission (the hit rows) or a ``degrade`` probe.  Uploads of the host's
 admission batches go through pinned memory without blocking, and the
 origin sampler reads the alive count once, when the engine is built.
 
+The resident engine (:class:`ResidentServeEngine`,
+:func:`serve_resident`, :func:`resident_closed_loop_replay`) runs a
+whole iteration — enqueue into a device admission ring, pop / probe /
+admit, a budget of rounds, harvest — as one program a macro step: on
+the card a captured CUDA graph, read back once a step, one step late.
+
 Randomness is an argument: admissions take their origins as a tensor;
 :func:`serve_open_loop` and :func:`closed_loop_replay` draw them from an
 explicit ``torch.Generator`` unless given (``origins_of`` / ``origins``);
@@ -56,8 +62,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import kernels
 from ..ops.u32 import MASK32, U32_MAX, mul32
-from ..ops.xor_metric import N_LIMBS
+from ..ops.xor_metric import N_LIMBS, merge_ladder_widths
 from ..utils.rate_limiter import TokenBucket
 from .swarm import (
     LookupResult,
@@ -264,13 +271,16 @@ def _admit(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
 
 
 def _scatter_rows_into(st: LookupState, new: LookupState,
-                       slots: torch.Tensor, rnd: int) -> LookupState:
+                       slots: torch.Tensor, rnd) -> LookupState:
     """The admission scatter (sentinel = the slot count, dropped): the
-    new rows, not done, zero hops, admitted at ``rnd``, not complete."""
+    new rows, not done, zero hops, admitted at ``rnd`` (an int or a
+    0-dim tensor on the device), not complete."""
     a = slots.shape[0]
     dev = slots.device
 
     def const(v, dtype):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype).expand(a)
         return torch.full((a,), v, dtype=dtype, device=dev)
 
     return LookupState(
@@ -281,7 +291,7 @@ def _scatter_rows_into(st: LookupState, new: LookupState,
         done=_set_rows(st.done, slots, const(False, torch.bool)),
         hops=_set_rows(st.hops, slots, const(0, torch.int32)),
         admitted_round=_set_rows(st.admitted_round, slots,
-                                 const(int(rnd), torch.int32)),
+                                 const(rnd, torch.int32)),
         completed_round=_set_rows(st.completed_round, slots,
                                   const(-1, torch.int32)))
 
@@ -1036,3 +1046,966 @@ def closed_loop_replay(swarm: Swarm, cfg: SwarmConfig,
     res = LookupResult(found=_finalize(swarm.ids, st, cfg),
                        hops=st.hops, done=st.done)
     return res, st
+
+
+# ---------------------------------------------------------------------------
+# the resident serve engine: one macro step, one CUDA graph
+# ---------------------------------------------------------------------------
+#
+# The burst engine above pays one host round trip a burst and, on the
+# card, every one of its eager launches.  The resident engine runs a
+# whole iteration — enqueue into a device admission ring → pop, probe
+# and admit into the lowest free slots → a budget of lock-step rounds →
+# expiry, finalize, cache fill and slot freeing — as one program, and
+# the host drains its bulk output (:class:`ResidentOut`) one macro step
+# later.  On the card that program is a CUDA graph captured once per
+# (cache on/off, round budget, expiry) from the *gated* round loop: it
+# runs exactly ``rounds`` trips and keeps the old state wherever
+# ``any(~done)`` has gone false, which equals JAX's ``lax.while_loop``
+# bit for bit because the condition never turns true again.  On the CPU
+# the same body runs with a host-side early exit.
+#
+# Ring contract (as in the JAX package): ``rq_*[R]`` is a circular
+# queue with monotonic int32 ``head`` / ``tail`` counters (positions mod
+# R); rows past the free space are shed and counted; admission pops
+# ``min(backlog, free slots, admit_cap)`` rows into the lowest free
+# slots (a stable argsort of the free mask: on an all-free state slot j
+# serves popped row j, which the closed-loop replay identity needs); a
+# completed slot is reported once and freed by the program that reports
+# it.
+
+class ServeRings(NamedTuple):
+    """The device admission ring and slot attribution.  ``rq_keys
+    [R,5]`` / ``rq_req [R]`` / ``rq_cls [R]``: the circular request queue
+    (key limbs, host request index, work class; ``rq_req = -1`` means
+    never written); ``head`` / ``tail`` / ``shed``: monotonic pop /
+    accept / overflow counters; ``slot_req [C]`` / ``slot_cls [C]``: the
+    request owning each lookup slot (-1 free)."""
+    rq_keys: torch.Tensor     # [R,5] int64 u32 key limbs
+    rq_req: torch.Tensor      # [R] int32
+    rq_cls: torch.Tensor      # [R] int32
+    head: torch.Tensor        # [] int32
+    tail: torch.Tensor        # [] int32
+    shed: torch.Tensor        # [] int32
+    slot_req: torch.Tensor    # [C] int32
+    slot_cls: torch.Tensor    # [C] int32
+
+
+class ResidentOut(NamedTuple):
+    """The bulk output of one macro step, the one read the host makes.
+
+    Scalars (int32): ``adm`` / ``hits`` rows admitted / answered from the
+    cache, ``queued`` the ring backlog after admission, ``head`` /
+    ``tail`` / ``shed`` the ring counters, ``rounds_run`` the round trips
+    that ran.  ``hit*`` rows are ``[A]`` (cache hits answered at pop
+    time, never holding a slot); ``comp*`` rows are ``[C]``: the slots
+    that finished (or expired: ``comp_com = -1``) this step.
+    ``rung_counts`` counts the rounds by merge-width rung (``[1]`` with
+    the ladder off); ``xchg_*_rows`` count routed-exchange rows (0 on
+    one device)."""
+    adm: torch.Tensor
+    hits: torch.Tensor
+    queued: torch.Tensor
+    head: torch.Tensor
+    tail: torch.Tensor
+    shed: torch.Tensor
+    rounds_run: torch.Tensor
+    hit: torch.Tensor          # [A] bool
+    hit_req: torch.Tensor      # [A] int32
+    hit_found: torch.Tensor    # [A,q] int32
+    hit_hops: torch.Tensor     # [A] int32
+    comp: torch.Tensor         # [C] bool
+    comp_req: torch.Tensor     # [C] int32
+    comp_cls: torch.Tensor
+    comp_hops: torch.Tensor
+    comp_adm: torch.Tensor
+    comp_com: torch.Tensor
+    comp_found: torch.Tensor   # [C,q] int32
+    rung_counts: torch.Tensor  # [n_rungs] int32
+    xchg_init_rows: torch.Tensor
+    xchg_round_rows: torch.Tensor
+
+
+def empty_serve_rings(slots: int, ring_slots: int,
+                      device=None) -> ServeRings:
+    """All-empty rings: zero backlog, every slot unattributed."""
+    dev = resolve_device(device)
+
+    def full(shape, v, dtype=torch.int32):
+        return torch.full(shape, v, dtype=dtype, device=dev)
+
+    return ServeRings(
+        rq_keys=full((ring_slots, N_LIMBS), 0, torch.int64),
+        rq_req=full((ring_slots,), -1), rq_cls=full((ring_slots,), -1),
+        head=full((), 0), tail=full((), 0), shed=full((), 0),
+        slot_req=full((slots,), -1), slot_cls=full((slots,), -1))
+
+
+def _ring_enqueue(rings: ServeRings, keys: torch.Tensor, reqs: torch.Tensor,
+                  cls: torch.Tensor, n_new) -> ServeRings:
+    """Accept ``n_new`` (clipped to ``[0, A]``) of the ``[A]`` rows into
+    the ring; rows past its free space are shed (counted, dropped),
+    never written over queued work."""
+    a = keys.shape[0]
+    r = rings.rq_keys.shape[0]
+    dev = keys.device
+    n_new = torch.as_tensor(n_new, dtype=torch.int32, device=dev).clamp(0, a)
+    space = r - (rings.tail - rings.head)
+    n_in = torch.minimum(n_new, space)
+    j = torch.arange(a, dtype=torch.int32, device=dev)
+    qpos = torch.where(j < n_in, (rings.tail + j) % r, r)
+    return rings._replace(
+        rq_keys=_set_rows(rings.rq_keys, qpos, keys),
+        rq_req=_set_rows(rings.rq_req, qpos, reqs),
+        rq_cls=_set_rows(rings.rq_cls, qpos, cls),
+        tail=rings.tail + n_in, shed=rings.shed + (n_new - n_in))
+
+
+def _ring_pop(st: LookupState, rings: ServeRings, a: int):
+    """Pop up to ``a`` queued rows and pair them with the lowest free
+    slots (free = ``done & admitted_round < 0``).  Returns ``(rings,
+    pkeys [a,5], preq [a], pcls [a], cand [a], valid [a])`` with the
+    head advanced; rows ``j >= p`` are padding (``valid`` false, ``preq``
+    -1)."""
+    c = st.done.shape[0]
+    r = rings.rq_keys.shape[0]
+    dev = st.done.device
+    free = st.done & (st.admitted_round < 0)
+    n_free = free.sum().to(torch.int32)
+    p = torch.minimum(rings.tail - rings.head, n_free).clamp(max=a)
+    j = torch.arange(a, dtype=torch.int32, device=dev)
+    valid = j < p
+    rpos = ((rings.head + j) % r).long()
+    preq = torch.where(valid, rings.rq_req[rpos], -1)
+    pcls = torch.where(valid, rings.rq_cls[rpos], -1)
+    order = torch.argsort((~free).to(torch.int32), stable=True)
+    cand = order[j.clamp(0, c - 1).long()].to(torch.int32)
+    return (rings._replace(head=rings.head + p), rings.rq_keys[rpos], preq,
+            pcls, cand, valid)
+
+
+def _cache_fill_sorted(cache: ResultCache, keys: torch.Tensor,
+                       found: torch.Tensor, hops: torch.Tensor,
+                       mask: torch.Tensor, rnd) -> ResultCache:
+    """The cache fill with the slot dedup on the device (the twin of
+    :meth:`ServeEngine.fill_cache`'s host dedup): one stable sort groups
+    the rows by cache slot and the last row of each group wins, so each
+    field's scatter writes every slot at most once.  Masked rows go to
+    the spare row."""
+    k_slots = cache.keys.shape[0]
+    m = keys.shape[0]
+    cs = torch.where(mask, _cache_slot_of(keys, k_slots), k_slots)
+    cs_s, row_s = torch.sort(cs, stable=True)
+    last = torch.cat([cs_s[1:] != cs_s[:-1],
+                      torch.ones((1,), dtype=torch.bool, device=cs.device)])
+    eff = torch.where(last & (cs_s < k_slots), cs_s, k_slots)
+    r32 = torch.as_tensor(rnd, dtype=torch.int32, device=cs.device).expand(m)
+    return cache._replace(
+        keys=_set_rows(cache.keys, eff, keys[row_s]),
+        found=_set_rows(cache.found, eff, found[row_s]),
+        hops=_set_rows(cache.hops, eff, hops[row_s]),
+        fill_round=_set_rows(cache.fill_round, eff, r32),
+        fill_epoch=_set_rows(cache.fill_epoch, eff, cache.epoch.expand(m)))
+
+
+def _rung_ladder(cfg: SwarmConfig, rung_block: int | None):
+    """The merge-width rungs of ``rung_block`` (``None``: no ladder).
+    ``merge_impl="fused-round"`` merges at its own fixed width, so it
+    takes no ladder."""
+    if rung_block is None:
+        return None
+    if cfg.merge_impl == "fused-round":
+        raise ValueError(
+            "rung_block width selection needs the rank merge's width "
+            "ladder; merge_impl='fused-round' fuses its own fixed-width "
+            "merge — drop one of the two")
+    return merge_ladder_widths(cfg.alpha * 2 * cfg.bucket_k, rung_block)
+
+
+def _rung_of(st: LookupState, cfg: SwarmConfig, rungs) -> torch.Tensor:
+    """The rung a round at ``st`` selects: the first rung covering the
+    widest pending row's solicitation width (``_pending_and_wneed``'s
+    watermark), computed on the device — a count of the rungs below it,
+    which is ``searchsorted(rungs, wneed)``."""
+    unq = ((st.idx >= 0) & ~st.queried).sum(dim=1)
+    blocks = torch.where(st.done, 0, unq.clamp(max=cfg.alpha))
+    wneed = blocks.max() * (2 * cfg.bucket_k)
+    bi = sum((wneed > t).to(torch.int32) for t in rungs)
+    return bi.clamp(max=len(rungs) - 1)
+
+
+def _resident_rounds(swarm: Swarm, cfg: SwarmConfig, st: LookupState, rnd0,
+                     rounds: int, rung_block: int | None, gated: bool):
+    """Up to ``rounds`` lock-step rounds (round ``rnd0 + it``), stopping
+    once every row is done.  The early-exit form (``gated=False``) reads
+    ``any(~done)`` on the host before each trip; the gated form runs all
+    ``rounds`` trips with no host read and keeps the old state where the
+    trip is inactive — the form a CUDA graph captures.  Both equal JAX's
+    ``lax.while_loop``.  With ``rung_block`` each active round counts
+    the merge-width rung it selects; the merge itself always runs at
+    full width (every rung is bit-identical to it).  Returns ``(state,
+    rounds_run [] int32, rung_counts [n_rungs] int32)``."""
+    rungs = _rung_ladder(cfg, rung_block)
+    dev = st.done.device
+    lanes = torch.arange(len(rungs) if rungs else 1, device=dev)
+    counts = torch.zeros(lanes.shape, dtype=torch.int32, device=dev)
+
+    def rung(s):
+        return _rung_of(s, cfg, rungs) if rungs else 0
+
+    if not gated:
+        it = 0
+        while it < rounds and bool((~st.done).any()):
+            counts = counts + (lanes == rung(st)).to(torch.int32)
+            st = lookup_step(swarm, cfg, st, rnd=rnd0 + it)
+            it += 1
+        return st, torch.tensor(it, dtype=torch.int32, device=dev), counts
+    run = torch.zeros((), dtype=torch.int32, device=dev)
+    for it in range(rounds):
+        active = (~st.done).any()
+        counts = counts + ((lanes == rung(st)) & active).to(torch.int32)
+        new = lookup_step(swarm, cfg, st, rnd=rnd0 + it)
+        st = LookupState(*[o if n is o else torch.where(active, n, o)
+                           for n, o in zip(new, st)])
+        run = run + active.to(torch.int32)
+    return st, run, counts
+
+
+def _resident_tail(ids: torch.Tensor, cfg: SwarmConfig, st: LookupState,
+                   cache: ResultCache | None, rnd_end, expire: bool):
+    """The harvest: expiry (pending rows ``max_steps`` rounds past their
+    admission become done with no completion stamp), completion
+    detection, finalize and the cache fill (true completions with a
+    non-empty head only).  Returns ``(st, cache, comp, fin)``."""
+    if expire:
+        stale = (~st.done & (st.admitted_round >= 0)
+                 & (rnd_end - st.admitted_round >= cfg.max_steps))
+        st = st._replace(done=st.done | stale)
+    comp = st.done & (st.admitted_round >= 0)
+    fin = _finalize(ids, st, cfg)
+    if cache is not None:
+        fmask = comp & (st.completed_round >= 0) & (fin[:, 0] >= 0)
+        cache = _cache_fill_sorted(cache, st.targets, fin, st.hops, fmask,
+                                   rnd_end)
+    return st, cache, comp, fin
+
+
+def _resident_core(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+                   rings: ServeRings, cache: ResultCache | None,
+                   keys: torch.Tensor, reqs: torch.Tensor, cls: torch.Tensor,
+                   origins: torch.Tensor, n_new, rnd0, rounds: int,
+                   expire: bool, rung_block: int | None, gated: bool):
+    """One macro step: enqueue → pop / probe / admit → rounds → harvest /
+    fill / free.  ``keys [A,5]`` / ``reqs [A]`` / ``cls [A]`` are the
+    padded enqueue batch (``n_new`` real rows), ``origins [A]`` the
+    admission origins (the batch engine's full-width draw, so the replay
+    equals ``lookup``), ``rnd0`` the first round's index (an int, or a
+    0-dim int32 tensor in a graph).  Returns ``(st, rings, cache,
+    ResidentOut)``."""
+    c = st.done.shape[0]
+    a = keys.shape[0]
+    dev = st.done.device
+    rings = _ring_enqueue(rings, keys, reqs, cls, n_new)
+    rings, pkeys, preq, pcls, cand, valid = _ring_pop(st, rings, a)
+    if cache is not None:
+        hit_raw, h_found, h_hops = _probe_impl(cache, pkeys)
+        hit = hit_raw & valid
+    else:
+        hit = torch.zeros((a,), dtype=torch.bool, device=dev)
+        h_found = torch.full((a, cfg.quorum), -1, dtype=torch.int32,
+                             device=dev)
+        h_hops = torch.zeros((a,), dtype=torch.int32, device=dev)
+    take = valid & ~hit
+    eff = torch.where(take, cand, c)
+    st = _scatter_rows_into(st, lookup_init(swarm, cfg, pkeys, origins), eff,
+                            rnd0)
+    rings = rings._replace(slot_req=_set_rows(rings.slot_req, eff, preq),
+                           slot_cls=_set_rows(rings.slot_cls, eff, pcls))
+    st, rounds_run, rung_counts = _resident_rounds(
+        swarm, cfg, st, rnd0, rounds, rung_block, gated)
+    st, cache, comp, fin = _resident_tail(swarm.ids, cfg, st, cache,
+                                          rnd0 + rounds, expire)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    out = ResidentOut(
+        adm=take.sum().to(torch.int32), hits=hit.sum().to(torch.int32),
+        queued=rings.tail - rings.head, head=rings.head, tail=rings.tail,
+        shed=rings.shed, rounds_run=rounds_run, hit=hit,
+        hit_req=torch.where(hit, preq, -1), hit_found=h_found,
+        hit_hops=h_hops, comp=comp,
+        comp_req=torch.where(comp, rings.slot_req, -1),
+        comp_cls=torch.where(comp, rings.slot_cls, -1),
+        comp_hops=st.hops, comp_adm=st.admitted_round,
+        comp_com=st.completed_round, comp_found=fin,
+        rung_counts=rung_counts, xchg_init_rows=zero, xchg_round_rows=zero)
+    # Free the reported slots: done stays true, the lifecycle clears.
+    st = st._replace(admitted_round=torch.where(comp, -1, st.admitted_round))
+    rings = rings._replace(
+        slot_req=torch.where(comp, -1, rings.slot_req),
+        slot_cls=torch.where(comp, -1, rings.slot_cls))
+    return st, rings, cache, out
+
+
+def _resident_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+                   rings: ServeRings, keys, reqs, cls, origins, n_new, rnd0,
+                   *, rounds: int, expire: bool = True,
+                   rung_block: int | None = None, gated: bool = False):
+    """The cache-off macro step run eagerly → ``(st, rings, out)``."""
+    st, rings, _cache, out = _resident_core(
+        swarm, cfg, st, rings, None, keys, reqs, cls, origins, n_new, rnd0,
+        rounds, expire, rung_block, gated)
+    return st, rings, out
+
+
+def _resident_step_cached(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+                          rings: ServeRings, cache: ResultCache, keys, reqs,
+                          cls, origins, n_new, rnd0, *, rounds: int,
+                          expire: bool = True, rung_block: int | None = None,
+                          gated: bool = False):
+    """The macro step with the result cache inside it, run eagerly →
+    ``(st, rings, cache, out)``: a pop-time probe (a hit never holds a
+    slot) and a harvest-time fill deduplicated on the device."""
+    return _resident_core(swarm, cfg, st, rings, cache, keys, reqs, cls,
+                          origins, n_new, rnd0, rounds, expire, rung_block,
+                          gated)
+
+
+def _out_layout(a: int, c: int, q: int, n_rungs: int):
+    """``(name, shape)`` of each :class:`ResidentOut` field, in order."""
+    shapes = {"hit": (a,), "hit_req": (a,), "hit_found": (a, q),
+              "hit_hops": (a,), "comp_found": (c, q), "rung_counts": (n_rungs,)}
+    for f in ("comp", "comp_req", "comp_cls", "comp_hops", "comp_adm",
+              "comp_com"):
+        shapes[f] = (c,)
+    return [(f, shapes.get(f, ())) for f in ResidentOut._fields]
+
+
+_BOOL_FIELDS = ("hit", "comp")
+
+
+def _unpack_out(flat: np.ndarray, layout) -> ResidentOut:
+    """A packed int32 output row → :class:`ResidentOut` of numpy arrays
+    (copies: the pinned buffer is written again two steps later)."""
+    fields, at = [], 0
+    for name, shape in layout:
+        n = int(np.prod(shape, dtype=np.int64))
+        x = flat[at:at + n].reshape(shape)
+        fields.append(x.astype(np.bool_) if name in _BOOL_FIELDS
+                      else x.copy())
+        at += n
+    return ResidentOut(*fields)
+
+
+class PendingOut(NamedTuple):
+    """A macro step's output on its way to the host: which of the two
+    pinned buffers it lands in and the step's sequence number.  Read it
+    with :meth:`ResidentServeEngine.read_out` before two more steps
+    reuse the buffer."""
+    buffer: int
+    seq: int
+
+
+class ResidentServeEngine(ServeEngine):
+    """Serve engine whose whole iteration is one device program: the
+    host fills the admission ring and drains the bulk output one macro
+    step late.
+
+    ``ring_slots`` (default ``4 × admit_cap``, at least ``2 ×
+    admit_cap``: :func:`serve_resident`'s hand-off throttle keeps one
+    in-flight batch of headroom) sizes the ring; ``rounds_per_iter`` is
+    a macro step's round budget; ``rung_block`` counts each round's
+    merge-width rung (not with ``merge_impl="fused-round"``).
+
+    On the card, :meth:`macro_step` replays a ``torch.cuda.CUDAGraph``
+    captured once per (cache on/off, rounds, expiry) from the gated
+    round loop.  The state, rings and cache are the graphs' static
+    tensors, updated in place; a state or rings handed in that are not
+    those tensors are copied into them first, and the state and rings
+    returned are those tensors.  The inputs reach the graph's input
+    buffer through two alternating pinned host buffers, and each replay
+    ends with one asynchronous copy of the output into one of two
+    pinned host buffers (:class:`PendingOut`).  A capture or replay that
+    fails raises: there is no eager fallback.  On the CPU
+    :meth:`macro_step` runs the early-exit form and returns the
+    :class:`ResidentOut` tensors."""
+
+    def __init__(self, swarm: Swarm, cfg: SwarmConfig, slots: int,
+                 admit_cap: int | None = None, cache_slots: int = 0,
+                 ring_slots: int | None = None, rounds_per_iter: int = 2,
+                 rung_block: int | None = None, device=None):
+        super().__init__(swarm, cfg, slots, admit_cap,
+                         cache_slots=cache_slots, device=device)
+        self.ring_slots = ring_slots or 4 * self.admit_cap
+        if self.ring_slots < 2 * self.admit_cap:
+            raise ValueError(
+                f"ring_slots {self.ring_slots} must be >= 2 x admit_cap "
+                f"{self.admit_cap}: the host throttle reserves one "
+                f"in-flight enqueue batch of headroom")
+        if rounds_per_iter < 1:
+            raise ValueError("rounds_per_iter must be >= 1")
+        self.rounds_per_iter = rounds_per_iter
+        rungs = _rung_ladder(cfg, rung_block)
+        self.rung_block = rung_block
+        self.n_rungs = len(rungs) if rungs else 1
+        self.readbacks = 0      # host waits for a macro step's output
+        self.replays = 0        # graph replays (card)
+        self.graphs: dict = {}  # (use_cache, rounds, expire) -> graph
+        self._io = None
+
+    def empty_rings(self) -> ServeRings:
+        return empty_serve_rings(self.slots, self.ring_slots, self.device)
+
+    def macro_step(self, st, rings, keys, reqs, cls, origins, n_new, rnd0,
+                   rounds: int | None = None, expire: bool = True,
+                   use_cache: bool | None = None):
+        """One macro step.  ``keys [A,5]`` / ``reqs [A]`` / ``cls [A]`` /
+        ``origins [A]`` (numpy arrays or tensors) are the padded
+        enqueue batch with ``n_new`` real rows, ``rnd0`` the first round.
+        Returns ``(st, rings, out)`` with nothing read back: ``out`` is
+        a :class:`ResidentOut` of tensors on the CPU and a
+        :class:`PendingOut` on the card (:meth:`read_out` reads
+        either)."""
+        rounds = self.rounds_per_iter if rounds is None else rounds
+        if use_cache is None:
+            use_cache = self.cache is not None
+        if use_cache and self.cache is None:
+            raise ValueError("use_cache=True needs cache_slots>0")
+        if self.device.type == "cuda":
+            return self._replay(st, rings, keys, reqs, cls, origins, n_new,
+                                rnd0, rounds, expire, use_cache)
+        d = self.device
+        st, rings, cache, out = _resident_core(
+            self.swarm, self.cfg, st, rings,
+            self.cache if use_cache else None, _upload(keys, torch.int64, d),
+            _upload(reqs, torch.int32, d), _upload(cls, torch.int32, d),
+            _upload(origins, torch.int32, d), int(n_new), int(rnd0), rounds,
+            expire, self.rung_block, gated=False)
+        if use_cache:
+            self.cache = cache
+        return st, rings, out
+
+    def read_out(self, out) -> ResidentOut:
+        """A macro step's output as numpy arrays.  On the card this waits
+        for the step's copy to land — the loop's one read a macro step."""
+        self.readbacks += 1
+        if isinstance(out, ResidentOut):
+            return ResidentOut(*[x.cpu().numpy() for x in out])
+        io = self._io
+        if io["out_seq"][out.buffer] != out.seq:
+            raise RuntimeError(
+                "a macro step's output was read after two later steps "
+                "reused its buffer")
+        io["out_ev"][out.buffer].synchronize()
+        return _unpack_out(io["host_out"][out.buffer].numpy(), io["layout"])
+
+    def warm_resident(self, rounds: int | None = None) -> None:
+        """Off the clock: on the card, capture the macro-step graph that
+        :func:`serve_resident` replays (after one eager pass, which
+        builds the kernels); on the CPU, run one macro step on throwaway
+        carries (nothing queued)."""
+        rounds = self.rounds_per_iter if rounds is None else rounds
+        if self.device.type == "cuda":
+            self._graph(self.cache is not None, rounds, True)
+            return
+        a = self.admit_cap
+        self.macro_step(self.empty(), self.empty_rings(),
+                        np.zeros((a, N_LIMBS), np.uint32),
+                        np.full((a,), -1, np.int32),
+                        np.full((a,), -1, np.int32), np.zeros((a,), np.int32),
+                        0, 0, rounds=rounds)
+
+    # -- the card: graph capture and replay -------------------------------
+
+    def _setup_io(self) -> None:
+        """The graphs' static carries, the input buffer and the pinned
+        host buffers (two for inputs, two for outputs)."""
+        a, dev = self.admit_cap, self.device
+        layout = _out_layout(a, self.slots, self.cfg.quorum, self.n_rungs)
+        n_out = sum(int(np.prod(s, dtype=np.int64)) for _, s in layout)
+        n_in = 8 * a + 2          # keys 5A, reqs, cls, origins, n_new, rnd0
+        packed_in = torch.zeros((n_in,), dtype=torch.int64, device=dev)
+        packed_in[5 * a:7 * a] = -1
+        self._io = {
+            "st": self.empty(), "rings": self.empty_rings(),
+            "cache": self.cache,
+            "packed_in": packed_in, "layout": layout,
+            "host_in": [torch.empty((n_in,), dtype=torch.int64,
+                                    pin_memory=True) for _ in range(2)],
+            "host_out": [torch.empty((n_out,), dtype=torch.int32,
+                                     pin_memory=True) for _ in range(2)],
+            "in_ev": [torch.cuda.Event() for _ in range(2)],
+            "out_ev": [torch.cuda.Event() for _ in range(2)],
+            "out_seq": [0, 0], "turn_in": 0, "turn_out": 0, "seq": 0}
+
+    def _graph(self, use_cache: bool, rounds: int, expire: bool):
+        """The macro-step graph for this key, captured at first use."""
+        key = (use_cache, rounds, expire)
+        if key in self.graphs:
+            return self.graphs[key]
+        if self._io is None:
+            self._setup_io()
+        io, a = self._io, self.admit_cap
+        kernels.build_kernels()
+
+        def body():
+            p = io["packed_in"]
+            return _resident_core(
+                self.swarm, self.cfg, io["st"], io["rings"],
+                io["cache"] if use_cache else None, p[:5 * a].view(a, N_LIMBS),
+                p[5 * a:6 * a].to(torch.int32), p[6 * a:7 * a].to(torch.int32),
+                p[7 * a:8 * a].to(torch.int32), p[8 * a].to(torch.int32),
+                p[8 * a + 1].to(torch.int32), rounds, expire, self.rung_block,
+                gated=True)
+
+        # One eager pass on a side stream (the body is pure: the static
+        # carries are untouched) loads the kernel libraries and their
+        # runtime before the capture.
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body()
+        cur.wait_stream(side)
+        before = dict(kernels.CAPTURED)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):       # the default (global) capture mode
+            st, rings, cache, out = body()
+            pairs = [(io["st"], st), (io["rings"], rings)]
+            if use_cache:
+                pairs.append((io["cache"], cache))
+            for static, new in pairs:
+                for s, n in zip(static, new):
+                    s.copy_(n)
+            packed = torch.cat([x.reshape(-1).to(torch.int32) for x in out])
+        self.graphs[key] = g = {
+            "graph": graph, "out": packed,
+            "launches": {k: kernels.CAPTURED[k] - before[k] for k in before}}
+        return g
+
+    def _replay(self, st, rings, keys, reqs, cls, origins, n_new, rnd0,
+                rounds, expire, use_cache):
+        g = self._graph(use_cache, rounds, expire)
+        io, a = self._io, self.admit_cap
+        pairs = [(io["st"], st), (io["rings"], rings)]
+        if use_cache:           # e.g. an invalidation replaced the epoch
+            pairs.append((io["cache"], self.cache))
+            self.cache = io["cache"]
+        for static, given in pairs:
+            for s, x in zip(static, given):
+                if s is not x:
+                    s.copy_(x)
+        # Inputs: host arrays through a pinned buffer (the one whose last
+        # copy has finished), tensors on the card copied on the device.
+        b = io["turn_in"]
+        io["turn_in"] ^= 1
+        io["in_ev"][b].synchronize()
+        host = io["host_in"][b].numpy()
+        on_card = []
+        for lo, hi, x in ((0, 5 * a, keys), (5 * a, 6 * a, reqs),
+                          (6 * a, 7 * a, cls), (7 * a, 8 * a, origins)):
+            if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                on_card.append((lo, hi, x))
+            else:
+                host[lo:hi] = np.asarray(
+                    x.cpu() if isinstance(x, torch.Tensor) else x).reshape(-1)
+        host[8 * a] = int(n_new)
+        host[8 * a + 1] = int(rnd0)
+        p = io["packed_in"]
+        p.copy_(io["host_in"][b], non_blocking=True)
+        io["in_ev"][b].record()
+        for lo, hi, x in on_card:
+            p[lo:hi].copy_(x.reshape(-1))
+        g["graph"].replay()
+        kernels.count_replay(g["launches"])
+        self.replays += 1
+        b = io["turn_out"]
+        io["turn_out"] ^= 1
+        io["seq"] += 1
+        io["host_out"][b].copy_(g["out"], non_blocking=True)
+        io["out_ev"][b].record()
+        io["out_seq"][b] = io["seq"]
+        return io["st"], io["rings"], PendingOut(b, io["seq"])
+
+
+def resident_closed_loop_replay(swarm: Swarm, cfg: SwarmConfig,
+                                targets: torch.Tensor,
+                                generator: torch.Generator | None = None,
+                                engine: ResidentServeEngine | None = None, *,
+                                origins: torch.Tensor | None = None,
+                                device=None):
+    """A closed-loop replay through the resident program: enqueue the
+    whole batch, run one macro step of ``cfg.max_steps`` rounds (cache
+    off, no expiry: the batch engines report stragglers as not done) and
+    read its output once.  Equals ``lookup(swarm, cfg, targets,
+    origins=...)`` in found, hops and done: an all-free state pops row j
+    into slot j, the origins are the batch draw (``origins [L]``, or
+    drawn with ``generator`` as ``lookup`` draws them), the seed
+    exchange is ``lookup_init`` and every trip is the shared round at
+    the same index.  On the card the step is the engine's graph (48
+    gated trips at the default ``max_steps``).  Returns ``(LookupResult,
+    final state, ResidentOut)``: the result on the engine's device, the
+    output as numpy arrays; on the card the state is the graph's static
+    state."""
+    l = targets.shape[0]
+    eng = engine if engine is not None \
+        else ResidentServeEngine(swarm, cfg, slots=l, admit_cap=l,
+                                 ring_slots=2 * l, device=device)
+    if eng.slots != l or eng.admit_cap < l:
+        raise ValueError(f"resident replay needs slots == L == admit_cap; "
+                         f"engine has slots={eng.slots}, admit_cap="
+                         f"{eng.admit_cap} for L={l}")
+    if origins is None:
+        if generator is None:
+            generator = torch.Generator(device=eng.device).manual_seed(0)
+        origins = eng.draw_origins(generator, l)
+    dev = eng.device
+    st, _rings, out = eng.macro_step(
+        eng.empty(), eng.empty_rings(), targets.to(dev),
+        torch.arange(l, dtype=torch.int32, device=dev),
+        torch.zeros((l,), dtype=torch.int32, device=dev), origins.to(dev), l,
+        0, rounds=cfg.max_steps, expire=False, use_cache=False)
+    o = eng.read_out(out)
+    res = LookupResult(*[torch.from_numpy(x).to(dev)
+                         for x in (o.comp_found, o.comp_hops, o.comp)])
+    return res, st, o
+
+
+def serve_resident(engine: ResidentServeEngine, arrival_ts, keys,
+                   generator: torch.Generator | None = None, klass=None,
+                   duration: float | None = None,
+                   overload_queue_factor: int = 8,
+                   drain_round_cap: int | None = None, clock=None, sleep=None,
+                   admission: AdmissionControl | None = None,
+                   host_orchestration_budget: float = 0.05, *,
+                   origins_of=None) -> dict:
+    """Drive the resident engine against an open-loop schedule,
+    double-buffered: each host iteration pulls due arrivals into the host
+    queue, hands at most one padded batch to the device ring (throttled
+    to ``ring − backlog − admit_cap`` rows, so the ring never sheds: the
+    excess waits in the host queue under the burst loop's overload
+    guard), dispatches macro step k+1, and only then reads macro step
+    k's output — the one read a macro step, made while step k+1 runs.
+
+    Latency is reconstructed as in the burst loop: round-end walls
+    interpolated between macro marks (stamped when the dispatch
+    returns), floored at the request's hand-off wall.  ``admission``
+    takes the policies ``shed`` and ``queue``; ``degrade`` needs the
+    burst engine's host-side probe and raises.  Macro step ``i`` admits
+    from ``origins_of(i)`` if given, else from ``generator`` (default
+    seeded 0).  The clock is read at exactly the points the JAX loop
+    reads it, so under a deterministic virtual clock the whole report
+    (the ``resident`` block included) equals JAX's.
+
+    Returns the JAX package's report (the burst loop's keys plus the
+    ``resident`` block), plus ``found`` (each completion's found head,
+    beside ``request``) and ``layer_walls_s`` (host seconds dispatching,
+    blocked in the drain, asleep, and the rest: the host's own work;
+    measured outside the clock's reads)."""
+    clock = clock or time.perf_counter
+    sleep = sleep or time.sleep
+    pc = time.perf_counter
+    cfg, c = engine.cfg, engine.slots
+    a_cap = engine.admit_cap
+    rounds = engine.rounds_per_iter
+    use_cache = engine.cache is not None
+    if admission is not None and admission.policy == "degrade":
+        raise ValueError(
+            "admission policy 'degrade' needs the burst engine's host-side "
+            "cache probe; the resident loop supports 'shed' and 'queue'")
+    if origins_of is None:
+        gen = generator or torch.Generator(device=engine.device).manual_seed(0)
+        origins_of = lambda i: engine.draw_origins(gen, a_cap)  # noqa: E731
+    keys = np.asarray(keys)
+    arrival_np = np.asarray(arrival_ts, np.float64)
+    r_total = len(arrival_np)
+    if klass is None:
+        klass = np.full(r_total, "all")
+    drain_cap = drain_round_cap or 4 * cfg.max_steps
+    if duration is None:
+        duration = float(arrival_ts[-1]) if r_total else 0.0
+    hard_wall = duration * 5.0 + 30.0
+    walls = {"dispatch": 0.0, "drain_blocked": 0.0, "sleep": 0.0,
+             "host": 0.0}
+
+    engine.warm_resident()
+    st = engine.empty()
+    rings = engine.empty_rings()
+
+    queue: list[int] = []
+    enq_wall = np.zeros(r_total, np.float64)
+    next_ev = 0
+    rnd = 0
+    it_i = 0
+    marks_r = [0]
+    marks_w = [0.0]
+    # A completion's round is >= rnd_end - max_steps (expiry retires
+    # older rows), so this many trailing marks bracket every cr + 1.
+    tw = cfg.max_steps // max(1, rounds) + 4
+    rec_req, rec_lat, rec_hops, rec_rounds, rec_found, rec_answer = \
+        [], [], [], [], [], []
+    queue_depths: list[int] = []
+    occ_samples: list[float] = []
+    completed = expired = 0
+    shed = cache_hits = 0
+    handed = 0            # rows handed to the device ring
+    ring_backlog = 0      # proven upper bound on the device backlog
+    in_flight = 0
+    drain_rounds = 0
+    dev_shed = 0
+    dev_rounds = 0
+    macro_n = 0
+    ring_depths: list[int] = []
+    rung_counts = None
+    xchg_init = xchg_round = 0
+    blocked_s = 0.0
+    sleep_s = 0.0
+    dispatch_s = 0.0
+    overload = overload_queue_factor * c
+    pend = None           # (pending output, rnd0) of macro k
+
+    def _drain(o: ResidentOut, r0: int) -> None:
+        nonlocal completed, expired, cache_hits, in_flight, ring_backlog, \
+            dev_shed, dev_rounds, macro_n, rung_counts, xchg_init, \
+            xchg_round
+        macro_n += 1
+        dev_rounds += int(o.rounds_run)
+        dev_shed = int(o.shed)
+        ring_depths.append(int(o.queued))
+        rc = np.asarray(o.rung_counts, np.int64)
+        rung_counts = rc if rung_counts is None else rung_counts + rc
+        xchg_init += int(o.xchg_init_rows)
+        xchg_round += int(o.xchg_round_rows)
+        mr = marks_r[-tw:]
+        mw = marks_w[-tw:]
+        # Cache hits: answered at pop time (the macro's start), zero
+        # rounds and hops; the latency is the queueing delay.
+        hit = o.hit
+        n_hit = int(hit.sum())
+        if n_hit:
+            w0 = float(np.interp(r0, mr, mw))
+            hreq = o.hit_req[hit].astype(np.int64)
+            cw = np.maximum(w0, enq_wall[hreq])
+            rec_req.append(hreq)
+            rec_lat.append(np.maximum(0.0, cw - arrival_np[hreq]))
+            rec_hops.append(np.zeros(n_hit, np.int64))
+            rec_rounds.append(np.zeros(n_hit, np.int64))
+            rec_found.append(o.hit_found[hit][:, 0] >= 0)
+            rec_answer.append(o.hit_found[hit])
+        cache_hits += n_hit
+        completed += n_hit
+        if o.comp.any():
+            sl = np.nonzero(o.comp)[0]
+            req = o.comp_req[sl].astype(np.int64)
+            cr = o.comp_com[sl]
+            # Done with no completion stamp: expired in the program.
+            live = cr >= 0
+            expired += int((~live).sum())
+            if live.any():
+                req, cr = req[live], cr[live]
+                adm = o.comp_adm[sl][live]
+                w = np.maximum(np.interp(cr + 1, mr, mw), enq_wall[req])
+                rec_req.append(req)
+                rec_lat.append(np.maximum(0.0, w - arrival_np[req]))
+                rec_hops.append(o.comp_hops[sl][live].astype(np.int64))
+                rec_rounds.append((cr - adm + 1).astype(np.int64))
+                rec_found.append(o.comp_found[sl][live][:, 0] >= 0)
+                rec_answer.append(o.comp_found[sl][live])
+                completed += int(live.sum())
+        in_flight = int(o.head) - completed - expired
+        ring_backlog = int(o.queued)
+        occ_samples.append(in_flight / c)
+
+    t_run = pc()
+    t0 = clock()
+    while True:
+        now = clock() - t0
+        new_ev = int(np.searchsorted(arrival_np, now, side="right"))
+        if new_ev > next_ev:
+            queue.extend(range(next_ev, new_ev))
+            next_ev = new_ev
+        if len(queue) > overload:
+            if admission is not None and admission.policy == "shed":
+                over = len(queue) - overload
+                del queue[-over:]
+                shed += over
+            else:
+                raise ServeOverloadError(
+                    f"serve overload: admission queue reached {len(queue)} "
+                    f"requests (> {overload_queue_factor} x {c} slots) at "
+                    f"t={now:.2f}s — the arrival rate exceeds what this "
+                    f"slot capacity sustains on this machine; lower "
+                    f"--arrival-rate, raise --serve-slots, or shed with "
+                    f"--admission shed")
+        if now > hard_wall:
+            if admission is not None and admission.policy == "shed":
+                shed += len(queue) + (r_total - next_ev)
+                queue.clear()
+                next_ev = r_total
+            else:
+                raise ServeOverloadError(
+                    f"serve overload: run exceeded the {hard_wall:.0f}s "
+                    f"hard wall ({r_total - next_ev + len(queue)} requests "
+                    f"not yet admitted, {in_flight} in flight) — the "
+                    f"arrival rate exceeds serve capacity on this machine")
+        queue_depths.append(len(queue))
+
+        # Hand-off throttle: the backlog bound is the last drained
+        # snapshot plus at most one batch handed since (the pending
+        # macro); one admit_cap of headroom keeps the ring from shedding.
+        safe = engine.ring_slots - ring_backlog - a_cap
+        if pend is not None:
+            safe -= a_cap
+        m = min(len(queue), a_cap, max(0, safe))
+        if admission is not None and m:
+            take = []
+            qi = 0
+            while qi < len(queue) and len(take) < m:
+                ri = queue[qi]
+                if admission.allow(str(klass[ri]), now):
+                    take.append(ri)
+                elif admission.policy == "shed":
+                    shed += 1
+                else:          # queue: head-of-line waits for tokens
+                    break
+                qi += 1
+            del queue[:qi]
+            m = len(take)
+        else:
+            take = queue[:m]
+            del queue[:m]
+
+        # Work may exist: rows handed now, device work known at the last
+        # drain, or a pending macro that may have admitted some.
+        busy = m > 0 or in_flight > 0 or ring_backlog > 0
+        new_pend = None
+        if busy:
+            keys_np = np.zeros((a_cap, N_LIMBS), np.uint32)
+            reqs_np = np.full((a_cap,), -1, np.int32)
+            if m:
+                take_np = np.asarray(take, np.int64)
+                keys_np[:m] = keys[take_np]
+                reqs_np[:m] = take_np
+                enq_wall[take_np] = now
+            td = clock()
+            t_d = pc()
+            st, rings, out = engine.macro_step(
+                st, rings, keys_np, reqs_np, np.zeros((a_cap,), np.int32),
+                origins_of(it_i), m, rnd)
+            walls["dispatch"] += pc() - t_d
+            dispatch_s += clock() - td
+            marks_r.append(rnd + rounds)
+            marks_w.append(clock() - t0)
+            handed += m
+            new_pend = (out, rnd)
+            rnd += rounds
+            it_i += 1
+
+        if pend is not None:
+            o, r0 = pend
+            tb = clock()
+            t_b = pc()
+            o = engine.read_out(o)     # macro k's output, while k+1 runs
+            walls["drain_blocked"] += pc() - t_b
+            blocked_s += clock() - tb
+            _drain(o, r0)
+
+        pend = new_pend
+        draining = next_ev >= r_total and not queue
+        if draining and pend is None and in_flight == 0 \
+                and ring_backlog == 0:
+            break
+        if not busy and pend is None:
+            if next_ev < r_total:
+                gap = arrival_ts[next_ev] - (clock() - t0)
+                if gap > 0:
+                    sg = min(gap, 0.05)
+                    t_s = pc()
+                    sleep(sg)
+                    walls["sleep"] += pc() - t_s
+                    sleep_s += sg
+                continue
+        if draining and busy and m == 0:
+            drain_rounds += rounds
+            if drain_rounds > drain_cap:
+                break
+
+    if pend is not None:
+        # Drain-cap exit with a macro still in flight.
+        o, r0 = pend
+        _drain(engine.read_out(o), r0)
+        pend = None
+
+    elapsed = clock() - t0
+    walls["host"] = max(0.0, pc() - t_run - walls["dispatch"]
+                        - walls["drain_blocked"] - walls["sleep"])
+    admitted = completed + expired + in_flight
+    shed += dev_shed
+    orch = max(0.0, elapsed - dispatch_s - blocked_s - sleep_s)
+    req_arr = (np.concatenate(rec_req) if rec_req
+               else np.asarray([], np.int64))
+    return {
+        "slots": c,
+        "admit_cap": a_cap,
+        "burst": rounds,
+        "admitted": admitted,
+        "completed": completed,
+        "expired": expired,
+        "in_flight": in_flight,
+        "never_admitted": len(queue) + (r_total - next_ev) + ring_backlog,
+        "shed": shed,
+        "cache_hits": cache_hits,
+        "cache_misses": (admitted - cache_hits) if use_cache else 0,
+        "degraded_hits": 0,
+        "cache_slots": engine.cache_slots,
+        "admission_policy": admission.policy if admission else None,
+        "sig_submitted": 0,
+        "rounds": rnd,
+        "elapsed_s": elapsed,
+        "sustained_rps": completed / elapsed if elapsed > 0 else 0.0,
+        "request": req_arr,
+        "latency_s": np.concatenate(rec_lat) if rec_lat
+        else np.asarray([], np.float64),
+        "hops": np.concatenate(rec_hops) if rec_hops
+        else np.asarray([], np.int64),
+        "service_rounds": np.concatenate(rec_rounds) if rec_rounds
+        else np.asarray([], np.int64),
+        "found_nonempty": np.concatenate(rec_found) if rec_found
+        else np.asarray([], bool),
+        "klass": np.asarray(klass)[req_arr]
+        if len(req_arr) else np.asarray([], dtype="<U4"),
+        "queue_depth_mean": float(np.mean(queue_depths))
+        if queue_depths else 0.0,
+        "queue_depth_max": int(np.max(queue_depths))
+        if queue_depths else 0,
+        "slot_occupancy_frac": float(np.mean(occ_samples))
+        if occ_samples else 0.0,
+        "burst_marks": list(zip(marks_r, marks_w)),
+        "resident": {
+            "ring_slots": engine.ring_slots,
+            "rounds_per_iter": rounds,
+            "iterations": macro_n,
+            "device_rounds": dev_rounds,
+            "ring_enqueued": handed,
+            "ring_shed": dev_shed,
+            "ring_backlog_final": ring_backlog,
+            "ring_depth_mean": float(np.mean(ring_depths))
+            if ring_depths else 0.0,
+            "ring_depth_max": int(np.max(ring_depths))
+            if ring_depths else 0,
+            "host_orchestration_s": orch,
+            "host_orchestration_frac": orch / elapsed
+            if elapsed > 0 else 0.0,
+            "host_orchestration_budget": host_orchestration_budget,
+            "device_dispatch_s": dispatch_s,
+            "blocked_get_s": blocked_s,
+            "sleep_s": sleep_s,
+            "rung_select": engine.rung_block,
+            "in_jit_rung_counts": [int(x) for x in rung_counts]
+            if rung_counts is not None else [],
+            "exchange": {"rows_init": xchg_init, "rows_round": xchg_round,
+                         "row_bytes": getattr(engine, "exchange_row_bytes",
+                                              0)},
+        },
+        "found": (np.concatenate(rec_answer) if rec_answer
+                  else np.zeros((0, cfg.quorum), np.int32)).astype(np.int32),
+        "layer_walls_s": walls,
+    }

@@ -235,11 +235,13 @@ def init_lifecycle(st: LookupState, rnd: int = 0) -> LookupState:
 
 
 def _advance(st: LookupState, sel: torch.Tensor, merged,
-             rnd: int | None) -> LookupState:
+             rnd: int | torch.Tensor | None) -> LookupState:
     """The state after a round from its merge ``merged = (idx, d0,
     queried, done)``: the done bit, a hop for every pending row that
     solicited, and the lifecycle stamp — ``completed_round`` set to
-    ``rnd`` where the done bit went True (the plane needs ``rnd``)."""
+    ``rnd`` where the done bit went True (the plane needs ``rnd``).
+    ``rnd`` is an int or a 0-dim int32 tensor on the state's device (a
+    captured CUDA graph reads its round from a buffer)."""
     f_idx, f_dist, f_q, done_merge = merged
     active = ~st.done & (sel >= 0).any(dim=1)
     done = st.done | done_merge
@@ -664,7 +666,7 @@ def _merge_round(st: LookupState, cfg: SwarmConfig, sel: torch.Tensor,
 
 def lookup_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
                 merge_w: int | None = None, *,
-                rnd: int | None = None) -> LookupState:
+                rnd: int | torch.Tensor | None = None) -> LookupState:
     """One lock-step round.  ``merge_w`` prices the plain rank merge at
     a narrower response width (guarded, bit-identical); the kernels
     always merge the full width.  ``rnd`` (the loop's round index) is

@@ -20,7 +20,10 @@ their plain PyTorch versions.
 A wrapper given CPU tensors runs the plain version (``*_plain``), which
 the tests hold against the JAX package.  Given CUDA tensors it launches
 the kernel, or raises: there is no fallback.  Each launch adds one to
-its entry in :data:`LAUNCHES`.
+its entry in :data:`LAUNCHES`.  A call made while a CUDA graph is being
+captured launches nothing and adds one to :data:`CAPTURED` instead;
+whoever replays the graph adds the graph's counts to :data:`LAUNCHES`
+a replay (:func:`count_replay`).
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 plain C-interface shared libraries under ``opendht_tpu_torch/build/``
@@ -58,6 +61,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES = {"merge_round": 0, "fused_round": 0, "nearest_k_ids": 0,
             "nearest_ids": 0}
+# Launches recorded into CUDA graphs under capture (never reset: a
+# capturer reads the difference across its capture).
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 # K1 and K2 take rows of at most this many entries (S + C): four per lane
 # of a warp (kMaxW in csrc/merge_core.cuh).
@@ -76,6 +82,22 @@ build_logs: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``'s kernel, or one recorded into the graph
+    being captured on the current stream."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
+def count_replay(counts: dict) -> None:
+    """A replay of a captured graph launched ``counts[name]`` kernels of
+    each wrapper (the :data:`CAPTURED` difference across its capture)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -241,7 +263,7 @@ def merge_round(fr_idx: torch.Tensor, fr_d0: torch.Tensor,
             o_d0.data_ptr(), o_q.data_ptr(), done.data_ptr(), l, s, c,
             out_w, min(quorum, out_w), stream)
     _raise_on(rc, "merge_round")
-    LAUNCHES["merge_round"] += 1
+    _count("merge_round")
     return o_idx, o_d0, o_q, done
 
 
@@ -342,7 +364,7 @@ def fused_round(tables: torch.Tensor, targets0: torch.Tensor,
             o_idx.data_ptr(), o_d0.data_ptr(), o_q.data_ptr(),
             done.data_ptr(), l, s, a, k, out_w, min(quorum, out_w), stream)
     _raise_on(rc, "fused_round")
-    LAUNCHES["fused_round"] += 1
+    _count("fused_round")
     return o_idx, o_d0, o_q, done
 
 
@@ -453,5 +475,5 @@ def _nearest_k_launch(ids: torch.Tensor, targets: torch.Tensor, k: int,
             None if valid is None else valid.data_ptr(), n, l, k,
             scratch.data_ptr(), words, out.data_ptr(), stream)
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return out
