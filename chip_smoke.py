@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup engine, its chaos engine, its storage
 plane with chunked values, its serve engines (burst, and resident: one
-CUDA graph a macro step) and its swarm-health monitor on one CUDA card
-and hold each of its CUDA kernels against its plain PyTorch version.
+CUDA graph a macro step), its swarm-health monitor, its PHT index and
+its always-on soak engine on one CUDA card and hold each of its CUDA
+kernels against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with one NVIDIA card and
 the CUDA toolkit:
@@ -126,7 +127,27 @@ Phases (any failure exits non-zero and prints no result line):
    and one replay a macro step, non-empty answers, recall@8 on 512
    served keys — one second of each engine under the profiler, and each
    leg beside the burst engine's on the same schedule;
-16. the monitor at 10M nodes, last (it kills nodes and heals the tables
+16. the PHT index and the soak, card vs CPU at 4,096 nodes (run after
+   phase 14): the index's build (with splits) — store and stats — its
+   walk, range scans, trie and lookups; four ``soak_open_loop`` reports
+   under a virtual clock (read-heavy with churn and an outage in both
+   arms, scan-heavy, chunk-heavy on the fused round) — every report
+   key, store, swarm, work-class plane and timeline row — and the
+   interference ledger;
+17. the index at ``bench.py --mode index``'s defaults on a 1M-node swarm
+   of its own (at 10M its store passes the 2^31 flat-index limit):
+   8,192 Zipf(1.2) entries, a timed build, 64 scans of span 64 — a
+   verdict pass on the fused round, three timed K1 passes — exact
+   against ``PhtOracle``, with the trie identities; then the soak at
+   ``bench.py --mode soak``'s defaults, each arm on its own swarm:
+   read-heavy at 10M nodes with and without maintenance (the ledger),
+   scan-heavy at 1M, chunk-heavy at 10M on the fused round, the station
+   legs at the rate that keeps their station to half the wall (one
+   flush timed first) — conservation per class, no work-class mismatch
+   or garbled read, non-empty answers and recall@8 before the first
+   fault, the monitor's identities, value survival — and one profiled
+   second of each leg;
+18. the monitor at 10M nodes, last (it kills nodes and heals the tables
    in place): ``bench.py --mode monitor``'s defaults (12 sweeps, period
    4, fresh_ttl 2, stale threshold 0.25, miss limit 2, kill 0.05 a sweep
    + heal), depth 22 (sweep 0 crawls 4,194,304 buckets), K1 engine —
@@ -139,8 +160,10 @@ spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
 ``storage_path``, ``serve_replay``, ``serve_leg``, ``serve_signed``,
 ``serve_path``, ``serve_kernel_times``, ``resident_replay``,
 ``resident_leg``, ``resident_path``, ``resident_profile``,
-``resident_vs_burst``, ``chunked_path``, ``monitor_sweep`` and
-``monitor_path`` lines, a ``kernels`` JSON line (each row with its
+``resident_vs_burst``, ``chunked_path``, ``index_path``,
+``soak_leg``, ``soak_ledger``, ``soak_profile``, ``monitor_sweep`` and
+``monitor_path`` lines, ``elapsed`` lines between phases, a ``kernels``
+JSON line (each row with its
 launches on every path — a graph replay counts the kernels its capture
 recorded — K1's and K2's with their times at the serve shape), the card
 line, and last ``{"ok": true, "device": {...}}``.
@@ -149,6 +172,7 @@ line, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import gc
 import inspect
 import json
 import os
@@ -2685,6 +2709,723 @@ def phase_monitor_full(sw, swarm, cfg, card, failures):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the PHT index and the soak engine
+# ---------------------------------------------------------------------------
+
+SOAK_SECONDS = 5.0          # bench.py --mode soak: --duration
+SOAK_RATE = 2000.0          # --arrival-rate
+SOAK_SLOTS = 2048           # --serve-slots
+SOAK_PUTS = 100_000         # --puts
+SOAK_POOL = 4096            # --key-pool
+INDEX_NODES = 1_000_000     # bench.py --mode index: --nodes
+INDEX_ENTRIES = 8192        # --entries
+INDEX_RANKS = 4096          # --key-pool
+INDEX_SCANS = 64            # --scans, each of --scan-span 64
+
+
+def cpu_origins(seed, alive, m):
+    """``m`` alive origins from a CPU generator seeded ``seed``, on
+    ``alive``'s device: the card and the CPU draw the same."""
+    import torch
+    from opendht_tpu_torch.models import swarm as sw
+    return sw._sample_origins(torch.Generator().manual_seed(seed),
+                              alive.cpu(), m).to(alive.device)
+
+
+def seeded_draws(n, k, base=0):
+    """A soak draw source giving the card and the CPU the same draws:
+    each from a CPU generator seeded by its fold path."""
+    import torch
+
+    def seed_of(path):
+        s = base
+        for x in path:
+            s = (s * 1_000_003 + int(x) + 7) % (1 << 62)
+        return s
+
+    def draws(kind, path, alive, m):
+        s = seed_of(path)
+        if kind == "origins":
+            return cpu_origins(s, alive, m)
+        if kind == "kill":
+            return torch.rand((n,), generator=torch.Generator().manual_seed(s))
+        return lambda b: torch.rand(
+            (n, k), generator=torch.Generator().manual_seed(s * 131 + b)
+        ).to(alive.device)
+    return draws
+
+
+def index_entries(ranks_n, entries, zipf, seed=7):
+    """``bench.py --mode index``'s entry list: Zipf(``zipf``) ranks over
+    ``ranks_n`` (uniform at 0), at most 16 a key, rank → 4-byte key,
+    hashes ``SHA-1("e<rank>.<dup>")`` → ``(keys, ehash, evid, rng, p)``
+    (``rng`` as the bench leaves it, ``p`` the rank weights)."""
+    import hashlib
+    import struct
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, ranks_n + 1, dtype=np.float64) ** zipf
+    p /= p.sum()
+    draws = (rng.choice(ranks_n, size=entries, p=p) if zipf > 0
+             else rng.integers(0, ranks_n, size=entries))
+    per, ranks, dups = {}, [], []
+    for r in draws:
+        c = per.get(int(r), 0)
+        if c >= 16:
+            continue
+        per[int(r)] = c + 1
+        ranks.append(int(r))
+        dups.append(c)
+    keys = [{"k": struct.pack(">I", r)} for r in ranks]
+    ehash = np.stack([np.frombuffer(hashlib.sha1(b"e%d.%d" % rd).digest(),
+                                    dtype=">u4") for rd in zip(ranks, dups)]
+                     ).astype(np.uint32)
+    return keys, ehash, np.arange(len(ranks), dtype=np.uint32), rng, p
+
+
+def scan_key(rank):
+    import struct
+    return {"k": struct.pack(">I", int(rank))}
+
+
+def index_geometry():
+    """``bench.py --mode index``'s spec and store: ``{"k": 4}`` (40
+    prefix bits, 9 payload words), 24 slots a node."""
+    from opendht_tpu_torch.models import index as ix
+    from opendht_tpu_torch.models import storage as st
+    spec = ix.IndexSpec.from_key_spec("bench", {"k": 4})
+    return spec, st.StoreConfig(slots=24, listen_slots=1, max_listeners=64,
+                                payload_words=spec.payload_words)
+
+
+def build_soak_arm(swarm, cfg, dev, *, slots, admit_cap, puts, scfg,
+                   mcfg=None, bootstrap=False, index=None, chunk=False,
+                   draws=None, seed=0):
+    """One soak arm on ``swarm`` (which it owns), as ``bench.py --mode
+    soak``'s ``build_arm``: ``puts`` tracked values announced and
+    min(64, puts) listeners, the monitor (``mcfg``; its crawl of every
+    bucket off the clock with ``bootstrap``), the scan index and the
+    chunked station (4 parts, pool 32, batch 16).  Keys and origins come
+    from CPU generators seeded from ``seed``.  Returns ``(soak, keys)``."""
+    import torch
+    from opendht_tpu_torch.models import monitor as mon
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.models import soak as sk
+    from opendht_tpu_torch.models import storage as st
+
+    pk = torch.randint(0, 2**32, (puts, 5),
+                       generator=torch.Generator().manual_seed(seed + 11)
+                       ).to(dev)
+    store = st.empty_store(cfg.n_nodes, scfg, dev)
+    store, _ = st.announce(swarm, cfg, store, scfg, pk,
+                           torch.arange(1, puts + 1, device=dev),
+                           torch.ones((puts,), dtype=torch.int64, device=dev),
+                           0, origins=cpu_origins(seed + 12, swarm.alive, puts),
+                           device=dev)
+    nl = min(64, puts)
+    store, _ = st.listen_at(swarm, cfg, store, scfg, pk[:nl],
+                            torch.arange(nl, dtype=torch.int32, device=dev),
+                            None, 0, device=dev,
+                            origins=cpu_origins(seed + 13, swarm.alive, nl))
+    eng = None
+    if mcfg is not None:
+        eng = mon.MonitorEngine(swarm, cfg, mcfg, device=dev)
+        if bootstrap:
+            eng.sweep(origins=cpu_origins(seed + 400, swarm.alive,
+                                          eng.n_buckets))
+    station = (sv.ChunkedStation(cfg, scfg, parts=4, pool=32, batch=16,
+                                 seed=5, device=dev) if chunk else None)
+    soak = sk.SoakEngine(
+        swarm, cfg, slots, scfg=scfg, store=store, monitor=eng, index=index,
+        scan_key_fn=scan_key if index is not None else None,
+        admit_cap=admit_cap,
+        soak_cfg=sk.SoakConfig(interval_s=0.5, repub_period_s=1.0,
+                               maint_cap=256, maint_slot_frac=0.25),
+        chunk_station=station, draws=draws, device=dev)
+    return soak, pk
+
+
+def phase_index_soak_card_vs_cpu(dev, failures) -> None:
+    """The PHT index and the soak engine, card vs CPU at 4,096 nodes:
+    ``insert_batch`` (with splits) — the store and stats — then
+    ``leaf_search``, ``range_query``, ``trie_snapshot`` and
+    ``lookup_batch``; then ``soak_open_loop`` under a virtual clock
+    (read-heavy with churn and an outage, both arms; scan-heavy over
+    that index; chunk-heavy on the fused round) — every report key, the
+    store, swarm, work-class plane and timeline rows — and the
+    interference ledger of the read-heavy pair.  Both sides take the
+    same draws."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import index as ix
+    from opendht_tpu_torch.models import monitor as mon
+    from opendht_tpu_torch.models import soak as sk
+    from opendht_tpu_torch.models import storage as st
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.obs import timeline as tl
+
+    n = 4096
+    cfg = sw.SwarmConfig.for_nodes(n, device="cpu")
+    base = sw.build_swarm(cfg, torch.Generator().manual_seed(31),
+                          device="cpu")
+    spec, iscfg = index_geometry()
+    keys, ehash, evid, rng, p = index_entries(128, 200, 1.2)
+    lo_r = rng.choice(128, size=8, p=p)
+    hi_r = np.minimum(lo_r + 7, 127)
+
+    def index_on(swarm, d):
+        return ix.DeviceIndex(
+            swarm, cfg, st.empty_store(n, iscfg, d), iscfg, spec, device=d,
+            draws=lambda op, m: cpu_origins(9000 + op, base.alive, m).to(d))
+
+    t_line = time.perf_counter()
+    ixs = {"cpu": index_on(base, "cpu"), "card": index_on(base.to(dev), dev)}
+    out = {}
+    for where, x in ixs.items():
+        stats = x.insert_batch(keys, ehash, evid)
+        lo_b = x.linearize([scan_key(r) for r in lo_r])
+        hi_b = x.linearize([scan_key(r) for r in hi_r])
+        out[where] = (stats, list(x.store), x.leaf_search(lo_b),
+                      x.range_query(lo_b, hi_b), x.trie_snapshot(),
+                      x.lookup_batch(keys[:32]))
+    a, b = out["cpu"], out["card"]
+    same = (a[0] == b[0] and same_tensors(a[1], b[1])
+            and same_tensors(a[2], b[2]) and a[3][0] == b[3][0]
+            and same_tensors(a[3][1], b[3][1]) and a[4] == b[4]
+            and same_tensors(a[5][0], b[5][0]) and a[5][1] == b[5][1])
+    log(f"index card vs CPU, {n} nodes: {'equal' if same else 'DIFFERENT'} "
+        f"(insert_batch of {len(keys)} entries — the store and stats — "
+        f"then leaf_search, range_query of 8 ranges, trie_snapshot, "
+        f"lookup_batch; splits {a[0]['splits']}, leaves {len(a[4][0])}, "
+        f"probe batches {a[0]['probe_batches']}; "
+        f"{time.perf_counter() - t_line:.1f} s)")
+    if not same or not a[0]["splits"]:
+        failures.append("the index differs card vs CPU (or never split)")
+
+    mcfg = mon.MonitorConfig.for_nodes(n)
+    scfg = st.StoreConfig(slots=4, listen_slots=4, max_listeners=64)
+    scen = (sk.ScenarioEvent(0.25, "churn", 0.05),
+            sk.ScenarioEvent(0.4, "outage", 0.02))
+    legs = {"read-heavy": dict(scenario=scen),
+            "read-heavy, maintenance off": dict(scenario=scen, off=True),
+            "scan-heavy": dict(scan=0.2),
+            "chunk-heavy": dict(chunk=0.2)}
+    timelines = {}
+    for name, o in legs.items():
+        ts_, kk, klass, ops, lo, hi = sk.mixed_events(
+            300.0, 0.6, 64, 1.1, seed=7, write_frac=0.05,
+            scan_frac=o.get("scan", 0.0), scan_span=8,
+            chunk_frac=o.get("chunk", 0.0))
+        c = cfg._replace(merge_impl="fused-round" if "chunk" in o
+                         else "auto")
+        reps, ends = {}, {}
+        t_line = time.perf_counter()
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            s_ = (base._replace(tables=base.tables.clone()) if d == "cpu"
+                  else base.to(d))
+            soak, _pk = build_soak_arm(
+                s_, c, d, slots=256, admit_cap=64, puts=256,
+                scfg=scfg._replace(payload_words=2 if "chunk" in o else 0),
+                mcfg=None if o.get("off") else mcfg,
+                index=ixs[where] if "scan" in o else None,
+                chunk="chunk" in o, draws=seeded_draws(n, cfg.bucket_k))
+            clock, sleep = virtual_clock()
+            tline = tl.SoakTimeline(0.25, 256, slo_target_s=0.25)
+            reps[where] = sk.soak_open_loop(
+                soak, ts_, kk, klass=klass, ops=ops, scan_lo=lo, scan_hi=hi,
+                burst=2, maintenance=not o.get("off"),
+                scenario=o.get("scenario", ()), timeline=tline, clock=clock,
+                sleep=sleep, origins_of=lambda i, soak=soak: cpu_origins(
+                    2000 + i, soak.swarm.alive, 64))
+            ends[where] = (list(soak.store), list(soak.swarm), soak.wc,
+                           tline.to_obj())
+        r = reps["cpu"]
+        same = (same_report(r, reps["card"])
+                and same_tensors(ends["cpu"][:3], ends["card"][:3])
+                and ends["cpu"][3] == ends["card"][3])
+        timelines[name] = ends["cpu"][3], ends["card"][3]
+        lc = r["lifecycle_by_class"]
+        log(f"soak card vs CPU, {n} nodes, {name}: "
+            f"{'equal' if same else 'DIFFERENT'} (every report key, store, "
+            f"swarm, work-class plane and timeline row; virtual clock; "
+            f"completed {r['completed']}, repub/monitor rows completed "
+            f"{lc['repub']['completed']}/{lc['monitor']['completed']}, "
+            f"scans {r['scan']['completed']}, chunked "
+            f"{r['chunked']['completed']} (garbled "
+            f"{r['chunked']['garbled']}), wclass mismatches "
+            f"{r['wclass_mismatches']}; {time.perf_counter() - t_line:.1f} "
+            f"s)")
+        if not same or r["wclass_mismatches"] or r["chunked"]["garbled"]:
+            failures.append(f"the soak differs card vs CPU ({name}), or a "
+                            f"work-class mismatch or a garbled read")
+    on, off = timelines["read-heavy"], timelines["read-heavy, maintenance off"]
+    led = [tl.interference_ledger(on[i], off[i]) for i in (0, 1)]
+    log(f"interference ledger card vs CPU, {n} nodes: "
+        f"{'equal' if led[0] == led[1] else 'DIFFERENT'} (p99 on/off "
+        f"{led[0]['p99_on_s']}/{led[0]['p99_off_s']}, maintenance-active "
+        f"intervals {led[0]['maint_active_intervals']})")
+    if led[0] != led[1]:
+        failures.append("the interference ledger differs card vs CPU")
+
+
+def store_bytes(n, scfg) -> int:
+    """Bytes of an empty port store (u32 fields as int64)."""
+    s, w, ls, ml = (scfg.slots, scfg.payload_words, scfg.listen_slots,
+                    scfg.max_listeners)
+    return (n * s * (5 * 8 + 5 * 8 + 1 + w * 8) + n * 8
+            + n * ls * (5 * 8 + 4 + 8) + n * 8 + ml * (1 + 3 * 8 + w * 8))
+
+
+def count_syncs(fn):
+    """``fn()`` with the synchronizing CUDA calls counted → ``(result,
+    count)``."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, len(sync_sites(caught)[0])
+
+
+def phase_index_full(card, failures):
+    """The index at ``bench.py --mode index``'s defaults on a swarm of
+    its own: 8,192 entries Zipf(1.2) over 4,096 ranks (at most 16 a
+    key), one timed build on the K1 engine, the sequential oracle, 64
+    scans of span 64 — a verdict pass on the fused round, three timed
+    passes on K1 (equal to it) — and the trie read back from the store, at
+    ``INDEX_NODES`` (1M, the bench's default: at 10M the store's
+    10M × 24 × 9 payload words pass the 2^31 flat-index limit both
+    packages' ``validate_store_geometry`` holds).  Exact recall, the
+    oracle's occupancy, ``n_leaves == 1 + split_levels``, entries
+    conserved and the walk within its bound are asserted.  Returns the
+    path's launch counts."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import index as ix
+    from opendht_tpu_torch.models import storage as st
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+    cfg = sw.SwarmConfig.for_nodes(INDEX_NODES)
+    swarm = sw.build_swarm(cfg, torch.Generator(device=dev).manual_seed(0))
+    spec, iscfg = index_geometry()
+    keys, ehash, evid, rng, p = index_entries(INDEX_RANKS, INDEX_ENTRIES, 1.2)
+    x = ix.DeviceIndex(swarm, cfg, st.empty_store(INDEX_NODES, iscfg, dev),
+                       iscfg, spec, seed=3, device=dev)
+    t0 = time.perf_counter()
+    build = x.insert_batch(keys, ehash, evid)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    orc = ix.PhtOracle(spec)
+    bits = x.linearize(keys)
+    for i in range(len(keys)):
+        orc.insert(bits[i], ehash[i].astype(">u4").tobytes(), int(evid[i]))
+    lo_r = rng.choice(INDEX_RANKS, size=INDEX_SCANS, p=p)
+    hi_r = np.minimum(lo_r + 63, INDEX_RANKS - 1)
+    lo_b = x.linearize([scan_key(r) for r in lo_r])
+    hi_b = x.linearize([scan_key(r) for r in hi_r])
+    want = [orc.entries_in_range(lo_b[i], hi_b[i]) for i in range(INDEX_SCANS)]
+    want_n = sum(len(w) for w in want)
+    # The verdict pass runs on the fused round (K2); the timed passes on
+    # K1 must return the same entries.
+    x.cfg = cfg._replace(merge_impl="fused-round")
+    res, leaves = x.range_query(lo_b, hi_b)
+    x.cfg = cfg
+    matched = sum(len(set(res[i]) & want[i]) for i in range(INDEX_SCANS))
+    extras = sum(len(set(res[i]) - want[i]) for i in range(INDEX_SCANS))
+    walls, syncs, batches = [], [], []
+    for _ in range(3):
+        b0 = x.stats["probe_batches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (res2, _l), n_sync = count_syncs(lambda: x.range_query(lo_b, hi_b))
+        walls.append(time.perf_counter() - t0)
+        syncs.append(n_sync)
+        batches.append(x.stats["probe_batches"] - b0)
+        if res2 != res:
+            failures.append("a K1 scan pass differs from the fused round's")
+    dev_leaves, interior = x.trie_snapshot()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    occ, occ_orc = [0] * 17, [0] * 17
+    for ents in dev_leaves.values():
+        occ[len(ents)] += 1
+    orc_leaves = orc.leaves()
+    for ents in orc_leaves.values():
+        occ_orc[len(ents)] += 1
+    in_leaves = sum(len(v) for v in dev_leaves.values())
+    returned = sum(len(r) for r in res)
+    scan_s = min(walls)
+    log("index_path " + json.dumps({
+        "n_nodes": INDEX_NODES, "entries": len(keys),
+        "entries_capped": INDEX_ENTRIES - len(keys),
+        "key_pool": INDEX_RANKS, "zipf": 1.2, "scans": INDEX_SCANS,
+        "scan_span": 64, "prefix_bits": spec.prefix_bits,
+        "payload_words": spec.payload_words,
+        "probe_round_bound": spec.probe_round_bound,
+        "build_wall_s": build_s, "build_entries_per_s": len(keys) / build_s,
+        "scan_wall_s": scan_s, "scan_walls_s": walls,
+        "scan_entries_per_s": returned / scan_s,
+        "entries_expected": want_n, "entries_returned": returned,
+        "recall": matched / want_n if want_n else 1.0, "extras": extras,
+        "leaves_touched_mean": float(leaves.mean()),
+        "probe_batches_per_scan_pass": batches,
+        "readbacks_per_scan_pass": syncs,
+        "n_leaves": len(dev_leaves), "n_interior": len(interior),
+        "entries_in_leaves": in_leaves, "leaf_occupancy_hist": occ,
+        "oracle_leaf_occupancy_hist": occ_orc, **build,
+        "store_bytes": store_bytes(INDEX_NODES, iscfg),
+        "table_bytes": sw.table_bytes(cfg), "launches": launches,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "phase_s": time.perf_counter() - t_phase, "card": card}))
+    ok = (matched == want_n and extras == 0
+          and occ == occ_orc and len(dev_leaves) == len(orc_leaves)
+          and len(dev_leaves) == 1 + build["split_levels"]
+          and in_leaves + build["overfull_drops"] == len(keys)
+          and build["walk_rounds_max"] <= spec.probe_round_bound)
+    if not ok:
+        failures.append("index path: recall, the oracle's occupancy, a trie "
+                        "identity or the walk bound fails")
+    if launches["merge_round"] <= 0 or launches["fused_round"] <= 0:
+        failures.append("K1 or K2 was not launched on the index path")
+    return launches
+
+
+def soak_stats(rep, tline) -> dict:
+    """A soak report's headline numbers: the bench row's quantiles from
+    the timeline's histograms, and the report's counters."""
+    import numpy as np
+    from opendht_tpu_torch.utils.metrics import Histogram
+    rows = tline.rows
+    counts = np.sum([r["latency_counts"] for r in rows], axis=0)
+    h = Histogram("soak", buckets=tline.bounds)
+    h.observe_bulk([int(v) for v in counts], 0.0)
+    n_lat = int(counts.sum())
+    q = {nm: (h.quantile(v) if n_lat else None) for nm, v in (
+        ("p50", 0.5), ("p95", 0.95), ("p99", 0.99), ("p999", 0.999))}
+    return {k: rep[k] for k in (
+        "admitted", "completed", "expired", "in_flight", "never_admitted",
+        "rounds", "elapsed_s", "sustained_rps", "slot_occupancy_frac",
+        "queue_depth_mean", "queue_depth_max", "wclass_mismatches",
+        "write_flushes", "lifecycle_by_class", "scan", "chunked")} | {
+        f"latency_{k}_s": v for k, v in q.items()} | {
+        "slo_violations": sum(r["slo_violations"] for r in rows),
+        "repub_sweeps": rep["repub_sweeps"],
+        "monitor_sweeps": len(rep["monitor_sweeps"]),
+        "maint_ops": len(rep["maint_ops"])}
+
+
+def monitor_ok(records, bound) -> bool:
+    """The freshness-conservation identities of consecutive sweep
+    records and the lag bound."""
+    prev = 0
+    for rec in records:
+        if not (rec["tracked_alive"] == prev + rec["newly_discovered"]
+                + rec["resurrected"] - rec["newly_dead"]
+                and rec["probed_tracked"] == rec["probed_seen"]
+                + rec["probed_missed"]
+                and (not rec["lag_count"] or rec["lag_max"] <= bound)):
+            return False
+        prev = rec["tracked_alive"]
+    return True
+
+
+def profile_soak(run, top: int = 10) -> dict:
+    """``run()`` (a one-second soak) under ``torch.profiler``: the
+    device's busy share of the wall and device time by kernel, summed
+    from the profiler's raw events (building its per-op event tree for
+    a soak's hundreds of thousands of events takes minutes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels_ms = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            kernels_ms[ev.name()] = (kernels_ms.get(ev.name(), 0.0)
+                                     + ev.duration_ns() / 1e6)
+    busy = sum(kernels_ms.values())
+    ranked = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms if wall_ms else None,
+            "bursts": len(rep["burst_marks"]) - 1,
+            "top_kernels_ms": [[n[:90], ms] for n, ms in ranked]}
+
+
+def served_recall(soak, rep, sched, epochs, outage):
+    """Recall@8 (K3) and empty answers of a soak leg over its whole
+    window.  ``epochs`` lists ``(second, kind, alive mask)``: the start
+    (``-inf``) and each scenario event.  An answer is held against every
+    epoch that stood while it was open (arrival to completion) and
+    scores its best — a lookup may meet a kill mid-flight.  Keys inside
+    the outage's sorted-id range (their whole neighbourhood died at
+    once) are reported apart, scored on the answers completed after the
+    outage.  Returns ``(out, empty_outside, sample)``: the report, the
+    empty answers to keys outside the outage range, and how many
+    outside answers were scored (up to ``N_RECALL``, spread evenly over
+    the completions)."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import swarm as sw
+    dev = soak.swarm.ids.device
+    ts_, keys = sched[0], sched[1]
+    req = rep["request"]
+    arr, done_t = ts_[req], ts_[req] + rep["latency_s"]
+    ids0 = soak.swarm.ids[:, 0].cpu().numpy()
+    n0 = soak.cfg.n_nodes // 2
+    lo_id, hi_id = ids0[n0], ids0[n0 + int(soak.cfg.n_nodes * outage)]
+    k0 = keys[req, 0].astype(np.int64)
+    gap = (k0 >= lo_id) & (k0 < hi_id)
+    empty = (rep["found"] < 0).all(1)
+    starts = np.asarray([t for t, _k, _a in epochs] + [np.inf])
+    t_out = min([t for t, k, _a in epochs if k == "outage"],
+                default=np.inf)
+
+    def recall_of(rows):
+        if not rows.size:
+            return None
+        k = torch.from_numpy(keys[req[rows]].astype(np.int64)).to(dev)
+        found = torch.from_numpy(rep["found"][rows]).to(dev)
+        best = np.zeros(rows.size)
+        for e, (_t, _k, alive) in enumerate(epochs):
+            open_ = (arr[rows] < starts[e + 1]) & (done_t[rows] >= starts[e])
+            if not open_.any():
+                continue
+            truth = sw.true_closest(soak.swarm._replace(alive=alive),
+                                    soak.cfg, k, device=dev)
+            hit = ((truth[:, :, None] == found[:, None, :])
+                   & (truth[:, :, None] >= 0)).any(2).float().mean(1)
+            best = np.where(open_, np.maximum(best, hit.cpu().numpy()), best)
+        return float(best.mean())
+
+    def spread(rows):
+        if rows.size <= N_RECALL:
+            return rows
+        return rows[np.linspace(0, rows.size - 1, N_RECALL).astype(int)]
+
+    outside = spread(np.flatnonzero(~gap))
+    inside = spread(np.flatnonzero(gap & (done_t >= t_out)))
+    emp = np.flatnonzero(empty)
+    out = {"recall_at_8": recall_of(outside), "sample": int(outside.size),
+           "answers": int(req.size), "in_outage": int(gap.sum()),
+           "recall_in_outage": recall_of(inside),
+           "in_outage_sample": int(inside.size),
+           "empty": int(emp.size), "empty_in_outage": int(gap[emp].sum()),
+           "empty_answers": [
+               [float(arr[i]), float(done_t[i]), bool(gap[i]),
+                int(np.searchsorted(starts, done_t[i], "right") - 1)]
+               for i in emp[:10]]}
+    return out, int((empty & ~gap).sum()), int(outside.size)
+
+
+def phase_soak_full(cfg, card, failures):
+    """The soak, ``bench.py --mode soak``'s defaults (2,000 req/s for
+    5 s, 2,048 slots, burst 2, pool 4,096, Zipf 1.1, seed 7;
+    ``StoreConfig(slots=4, listen_slots=4, max_listeners=1024)``,
+    100,000 tracked puts, 64 listeners; kill 0.02 every second and an
+    outage of 0.02 at mid-run, each with a heal; the monitor at period 4,
+    fresh TTL 2, stale 0.25, miss limit 2 after a bootstrap crawl;
+    interval 0.5 s, republish period 1 s, maintenance cap 256 and a
+    quarter of the slots; SLO 250 ms; real clock), each arm on a swarm of
+    its own built from the main path's seed: read-heavy (writes 5 %) at
+    10M nodes with and without maintenance, and the interference ledger;
+    scan-heavy (scans 20 %, span 64) at 1M nodes over an index built as
+    the bench builds it (8,192 uniform entries over 4,096 ranks: the
+    index store does not fit 10M nodes, see ``phase_index_full``);
+    chunk-heavy (chunked 20 %, 4 parts, a quarter writes, payload 2
+    words) at 10M nodes on the fused round.  Every leg offers the bench's
+    2,000 req/s; a station flush blocks the loop, and what the leg
+    sustains is reported.  Each leg asserts conservation per class, no
+    work-class mismatch, no garbled read, no empty answer and recall@8 ≥
+    0.99 on 512 answers spread over the whole window for keys outside the
+    outage's id range (K3, ``served_recall``; the keys inside are
+    reported), the monitor's identities and lag bound, and value
+    survival ≥ max(0.9, 1 − 1.5·outage − 0.002); then one second of each
+    leg's traffic runs on its arm under the profiler.  Launches are
+    counted apart for the arm's set-up, the soak run and the recall check
+    (K3).  Returns the path's launch counts: the runs' and the recall
+    checks'."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import index as ix
+    from opendht_tpu_torch.models import monitor as mon
+    from opendht_tpu_torch.models import soak as sk
+    from opendht_tpu_torch.models import storage as st
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.obs import timeline as tl
+    from opendht_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    outage = 0.02
+    scen = tuple(sk.ScenarioEvent(float(t), "churn", 0.02)
+                 for t in range(1, int(SOAK_SECONDS))
+                 ) + (sk.ScenarioEvent(SOAK_SECONDS / 2, "outage", outage),)
+    floor = max(0.9, 1.0 - 1.5 * outage - 0.002)
+    base_scfg = st.StoreConfig(slots=4, listen_slots=4, max_listeners=1024)
+    cfg_1m = sw.SwarmConfig.for_nodes(INDEX_NODES)
+
+    def arm(c, maint=True, chunk=False, scan=False):
+        swarm = sw.build_swarm(c, torch.Generator(device=dev).manual_seed(0))
+        index = None
+        if scan:
+            spec, iscfg = index_geometry()
+            index = ix.DeviceIndex(swarm, c,
+                                   st.empty_store(c.n_nodes, iscfg, dev),
+                                   iscfg, spec, seed=3, device=dev)
+            index.insert_batch(*index_entries(SOAK_POOL, INDEX_ENTRIES,
+                                              0.0)[:3])
+        mcfg = mon.MonitorConfig.for_nodes(c.n_nodes, period=4, fresh_ttl=2,
+                                           stale_threshold=0.25,
+                                           miss_limit=2)
+        return build_soak_arm(
+            swarm, c, dev, slots=SOAK_SLOTS, admit_cap=512, puts=SOAK_PUTS,
+            scfg=base_scfg._replace(payload_words=2 if chunk else 0),
+            mcfg=mcfg if maint else None, bootstrap=maint, index=index,
+            chunk=chunk)
+
+    def schedule(rate, duration, scan=0.0, chunk=0.0):
+        return sk.mixed_events(rate, duration, SOAK_POOL, 1.1, seed=7,
+                               write_frac=0.05, scan_frac=scan, scan_span=64,
+                               chunk_frac=chunk)
+
+    def run(soak, sched, maint, timeline=None, on_event=None):
+        ts_, kk, klass, ops, lo, hi = sched
+        return sk.soak_open_loop(
+            soak, ts_, kk, torch.Generator(device=dev).manual_seed(3),
+            klass=klass, ops=ops, scan_lo=lo, scan_hi=hi, burst=2,
+            duration=SOAK_SECONDS, maintenance=maint, scenario=scen,
+            timeline=timeline, on_event=on_event)
+
+    def counted(fn):
+        """``fn()`` and the launches it made, counted from 0."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES)
+
+    legs = {"read-heavy": dict(c=cfg), "scan-heavy": dict(c=cfg_1m, scan=True),
+            "chunk-heavy": dict(c=cfg._replace(merge_impl="fused-round"),
+                                chunk=True)}
+    timelines, prof = {}, {}
+    path = {k: 0 for k in kernels.LAUNCHES}
+    for name, o in legs.items():
+        frac = 0.2 if (o.get("scan") or o.get("chunk")) else 0.0
+        sched = schedule(SOAK_RATE, SOAK_SECONDS,
+                         scan=frac if o.get("scan") else 0.0,
+                         chunk=frac if o.get("chunk") else 0.0)
+        k_run = "fused_round" if o.get("chunk") else "merge_round"
+        for arm_name, maint in ([("on", True), ("off", False)]
+                                if name == "read-heavy" else [("on", True)]):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t_leg = time.perf_counter()
+            (soak, pk), l_setup = counted(lambda: arm(
+                o["c"], maint, o.get("chunk", False), o.get("scan", False)))
+            epochs = [(-np.inf, "start", soak.swarm.alive.clone())]
+            tline = tl.SoakTimeline(0.5, SOAK_SLOTS, slo_target_s=0.25)
+            (rep, n_sync), l_run = counted(lambda: count_syncs(lambda: run(
+                soak, sched, maint, tline, lambda ev, now: epochs.append(
+                    (now, ev.kind, soak.swarm.alive.clone())))))
+            timelines[(name, arm_name)] = tline.to_obj()
+            (ans, empty_out, n_rec), l_check = counted(
+                lambda: served_recall(soak, rep, sched, epochs, outage))
+            res = st.get_values(
+                soak.swarm, soak.cfg, soak.store, soak.scfg, pk,
+                torch.Generator(device=dev).manual_seed(99))
+            survival = float(res.hit.float().mean())
+            for k in path:
+                path[k] += l_run[k] + l_check[k]
+            recall = ans["recall_at_8"]
+            bursts = len(rep["burst_marks"]) - 1
+            lc = rep["lifecycle_by_class"]
+            mrec = soak.mon.records if soak.mon is not None else []
+            bound_ = soak.mon.mcfg.detection_lag_bound if soak.mon else None
+            out = {"leg": name, "arm": arm_name, "engine": o["c"].merge_impl,
+                   "n_nodes": o["c"].n_nodes, "arrival_rate": SOAK_RATE,
+                   "requests": int(sched[0].size),
+                   **soak_stats(rep, tline),
+                   "monitor_records": len(mrec),
+                   "coverage_last": mrec[-1]["coverage"] if mrec else None,
+                   "lag_max": max((r["lag_max"] for r in mrec), default=None),
+                   "detection_lag_bound": bound_,
+                   "value_survival": survival, "survival_floor": floor,
+                   "recall_at_8": recall, "recall_sample": n_rec,
+                   "answers": ans,
+                   "scenario_fired": [[t, k] for t, k, _a in epochs[1:]],
+                   "bursts": bursts, "host_syncs": n_sync,
+                   "host_syncs_per_burst": n_sync / max(1, bursts),
+                   "launches": l_run, "launches_setup": l_setup,
+                   "launches_recall": l_check,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "leg_s": time.perf_counter() - t_leg, "card": card}
+            log("soak_leg " + json.dumps(out))
+            mon_ok = monitor_ok(mrec, bound_)
+            ok = (all(d["admitted"] == d["completed"] + d["expired"]
+                      + d["in_flight"] for d in lc.values())
+                  and rep["wclass_mismatches"] == 0
+                  and rep["chunked"]["garbled"] == 0
+                  and empty_out == 0 and n_rec == N_RECALL
+                  and recall is not None and recall >= 0.99
+                  and rep["scan"]["arrived"] == rep["scan"]["completed"]
+                  + rep["scan"]["pending"]
+                  and mon_ok and (not maint or survival >= floor))
+            if not ok:
+                failures.append(f"soak leg {name} ({arm_name}): an asserted "
+                                f"identity fails (recall {recall} on "
+                                f"{n_rec}, empty answers outside the outage "
+                                f"{empty_out}, survival {survival}, monitor "
+                                f"{mon_ok})")
+            if l_run[k_run] <= 0 or l_check["nearest_k_ids"] <= 0:
+                failures.append(f"soak leg {name} ({arm_name}): {k_run} not "
+                                f"launched in the run or K3 not in the "
+                                f"recall check")
+            # One profiled second of the leg's traffic on its arm (no
+            # scenario event), after its measured run.
+            ts_, kk, klass, ops, lo, hi = sched
+            first = ts_ < 1.0
+            one = (ts_[first], kk[first], klass[first], ops[first],
+                   lo[first], hi[first])
+            if arm_name == "on":
+                prof[name] = profile_soak(lambda: sk.soak_open_loop(
+                    soak, *one[:2], torch.Generator(device=dev).manual_seed(4),
+                    klass=one[2], ops=one[3], scan_lo=one[4], scan_hi=one[5],
+                    burst=2, duration=1.0, maintenance=maint))
+            del soak, pk, res, epochs
+            gc.collect()
+    led = tl.interference_ledger(timelines[("read-heavy", "on")],
+                                 timelines[("read-heavy", "off")])
+    log("soak_ledger " + json.dumps({
+        "maint_interference_p99_delta_s": led["p99_delta_s"],
+        **{k: led[k] for k in ("p99_on_s", "p99_off_s", "p50_on_s",
+                               "p50_off_s", "maint_active_intervals",
+                               "p99_delta_maint_mean_s",
+                               "p99_delta_quiet_mean_s",
+                               "maint_slot_rounds_total",
+                               "maint_ops_wall_total_s")}, "card": card}))
+    log("soak_profile " + json.dumps({**prof, "card": card}))
+    return path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2714,6 +3455,9 @@ def main() -> int:
     phase_chaos_storage_card_vs_cpu(dev, failures)
     phase_serve_chunked_card_vs_cpu(dev, failures)
     phase_resident_monitor_card_vs_cpu(dev, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_index_soak_card_vs_cpu(dev, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # ---- the main path -------------------------------------------------
     cfg = sw.SwarmConfig.for_nodes(N_NODES)
@@ -2811,21 +3555,32 @@ def main() -> int:
                                               gen)))
 
     # ---- this slice's paths: the chaos engine and the storage plane ----
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_c = phase_chaos_full(sw, swarm, cfg, targets, card, failures)
     launches_s = phase_storage_full(sw, swarm, cfg_f, card, failures)
 
     # ---- the serve engine and chunked values ----------------------------
     launches_v, serve_times, burst_legs, burst_profiles = phase_serve_full(
         sw, swarm, cfg, targets, origins, res, card, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_r = phase_resident_full(sw, swarm, cfg, targets, origins, res,
                                      card, failures, burst_legs,
                                      burst_profiles)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_k = phase_chunked_full(sw, swarm, cfg_f, card, failures)
+    # ---- the PHT index and the soak (on swarms of their own) -----------
+    del res, truth, targets, origins
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    launches_i = phase_index_full(card, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    launches_so = phase_soak_full(cfg, card, failures)
     # The monitor kills nodes and heals the tables in place: last.
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_m = phase_monitor_full(sw, swarm, cfg, card, failures)
     by_path = {"main": launches, "fused": launches_f, "chaos": launches_c,
                "storage": launches_s, "serve": launches_v,
                "resident": launches_r, "chunked": launches_k,
+               "index": launches_i, "soak": launches_so,
                "monitor": launches_m}
     for row in kernel_rows:
         row["launches_by_path"] = {k: v[row["name"]]

@@ -3,13 +3,16 @@ round-merge and nearest-k kernels written in CUDA C++ for Hopper, the
 adversarial (chaos) engine beside it, the storage plane with SHA-1
 content ids, chunked values and the integrity plane, the open-loop
 serve engine (burst form, and the resident form whose macro step is one
-CUDA graph) and the swarm-health monitor.
+CUDA graph), the swarm-health monitor, the PHT secondary index and the
+always-on soak engine that runs serving, maintenance and monitoring in
+one loop.
 
 The package mirrors the layout of ``opendht_tpu`` (``ops/xor_metric.py``,
 ``ops/kernels.py``, ``ops/sha1.py``, ``models/swarm.py``,
 ``models/storage.py``, ``models/chunked_values.py``,
 ``models/integrity.py``, ``models/serve.py``, ``models/monitor.py``,
-``obs/health.py``, ``obs/timeline.py``, ``utils/rate_limiter.py`` and,
+``models/index.py``, ``models/soak.py``, ``obs/health.py``,
+``obs/timeline.py``, ``utils/rate_limiter.py``, ``utils/metrics.py`` and,
 for value signing, ``crypto/``) so each function has an obvious
 counterpart there, and computes bit-identical results on the same state
 (``tests/test_torch_*.py``).  It imports ``torch`` and nothing of JAX;

@@ -2,7 +2,8 @@
 
 The JAX engine's ``Swarm``, ``LookupState`` (a serve state too),
 ``SwarmStore``, the serve engine's ``ResultCache`` and ``ServeRings``
-and the monitor's ``FreshnessState`` are pytrees of arrays;
+and the monitor's ``FreshnessState`` are pytrees of arrays, and a
+``DeviceIndex`` and a ``SoakEngine`` carry host state beside them;
 passed here as numpy arrays, they become the port's tensors on the
 chosen device (the card unless the caller asks for the CPU, as every
 entry point resolves it), so both packages then compute on the same state — the
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.index import DeviceIndex
 from .models.monitor import FreshnessState
 from .models.serve import ResultCache, ServeRings
 from .models.storage import SwarmStore
@@ -135,3 +137,23 @@ def freshness_from_numpy(*fields, device=None) -> FreshnessState:
                          f"{len(FreshnessState._fields)} fields, got "
                          f"{len(fields)}")
     return FreshnessState(*[_tensor(x, np.int32, device) for x in fields])
+
+
+def load_index_state(ix: DeviceIndex, store_fields, max_depth: int, op: int,
+                     stats: dict) -> DeviceIndex:
+    """Give the port's ``ix`` the state of a JAX ``DeviceIndex``: its
+    store (numpy arrays in field order, as :func:`store_from_numpy`
+    takes them), its deepest canary ``_max_depth``, its store-op count
+    ``_op`` and its ``stats``.  Returns ``ix``."""
+    ix.store = store_from_numpy(*store_fields, device=ix.device)
+    ix._max_depth, ix._op = int(max_depth), int(op)
+    ix.stats = {k: int(v) for k, v in stats.items()}
+    return ix
+
+
+def load_soak_state(soak, wc, store_now: int):
+    """Give the port's ``SoakEngine`` a JAX engine's work-class plane
+    (``[slots]`` int32) and store clock (a u32).  Returns ``soak``."""
+    soak.wc = _tensor(wc, np.int32, soak.device)
+    soak.store_now = int(store_now) & 0xFFFFFFFF
+    return soak

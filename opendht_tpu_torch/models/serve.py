@@ -2009,3 +2009,117 @@ def serve_resident(engine: ResidentServeEngine, arrival_ts, keys,
                   else np.zeros((0, cfg.quorum), np.int32)).astype(np.int32),
         "layer_walls_s": walls,
     }
+
+
+# ---------------------------------------------------------------------------
+# chunked-value request station
+# ---------------------------------------------------------------------------
+
+class ChunkedStation:
+    """Host-side station serving chunked-value requests as a request
+    class of the soak loop (counterpart of JAX's ``ChunkedStation``).
+
+    Holds a pool of content-addressed multi-part values (random bytes
+    from ``numpy.random.default_rng(seed ^ 0xC4)``; row 0 is the
+    zero-length value).  Reads reassemble through
+    :func:`~opendht_tpu_torch.models.chunked_values.get_chunked` and are
+    byte-checked against the host copy: a hit is exact or counts as
+    ``garbled`` (the counter the soak holds at 0; missing is the only
+    legal degradation).  Writes are same-bytes seq-bump refreshes (the
+    key is the content).  Batches pad to ``batch`` rows with pool row 0
+    at its current seq and bytes, so padding changes nothing and its
+    results are discarded.  Each call's lookup origins are ``origins``
+    (one a batch row; the pool announce, one a pool value) or drawn
+    with ``generator``."""
+
+    def __init__(self, cfg: SwarmConfig, scfg, parts: int,
+                 pool: int = 32, batch: int = 16, seed: int = 0,
+                 device=None):
+        from .chunked_values import chunked_content_ids, mask_chunk_payloads
+        if parts < 1:
+            raise ValueError(f"parts must be >= 1, got {parts}")
+        if pool < 1 or batch < 1:
+            raise ValueError(f"pool/batch must be >= 1, got "
+                             f"pool={pool} batch={batch}")
+        self.device = resolve_device(device)
+        self.cfg, self.scfg = cfg, scfg
+        self.parts, self.pool, self.batch = parts, pool, batch
+        w = scfg.payload_words
+        rng = np.random.default_rng(seed ^ 0xC4)
+        pls = rng.integers(0, 2 ** 32, (pool, parts, w),
+                           dtype=np.uint64).astype(np.uint32)
+        lens = rng.integers(1, parts * w * 4 + 1, (pool,),
+                            dtype=np.int64).astype(np.uint32)
+        lens[0] = 0
+        d = self.device
+        self.payloads = _upload(pls, torch.int64, d)
+        self.lengths = _upload(lens, torch.int64, d)
+        self.keys = chunked_content_ids(self.payloads, self.lengths)
+        masked, _ = mask_chunk_payloads(self.payloads, self.lengths)
+        self.oracle = masked.reshape(pool, parts * w).cpu().numpy()
+        self.oracle_len = lens.astype(np.int64)
+        self.vals = torch.arange(1, pool + 1, dtype=torch.int64, device=d)
+        self.seqs = np.full((pool,), 2, np.uint64)     # host seq ledger
+        self.reads = self.writes = 0
+        self.garbled = self.missing = 0
+
+    def _seqs(self, rows) -> torch.Tensor:
+        return _upload(self.seqs[rows].astype(np.uint32), torch.int64,
+                       self.device)
+
+    def announce_pool(self, swarm: Swarm, store, now, *, generator=None,
+                      origins=None):
+        """The initial announce of the whole pool (the values chunked
+        requests read); returns the store."""
+        from .chunked_values import announce_chunked
+        store, _rep = announce_chunked(
+            swarm, self.cfg, store, self.scfg, self.keys, self.vals,
+            self._seqs(np.arange(self.pool)), now, generator, self.payloads,
+            self.lengths, origins=origins, device=self.device)
+        return store
+
+    def _pad(self, ranks):
+        ranks = np.asarray(ranks, np.int64) % self.pool
+        n = len(ranks)
+        if n > self.batch:
+            raise ValueError(f"batch of {n} exceeds the station width "
+                             f"{self.batch}")
+        out = np.zeros((self.batch,), np.int64)
+        out[:n] = ranks
+        return out, n
+
+    def read(self, swarm: Swarm, store, ranks, *, generator=None,
+             origins=None):
+        """Serve one padded batch of chunked reads; counts hits, garbled
+        and missing over the real rows → ``(hits, garbled)``."""
+        from .chunked_values import get_chunked
+        rows, n = self._pad(ranks)
+        idx = torch.from_numpy(rows).to(self.device)
+        res = get_chunked(swarm, self.cfg, store, self.scfg, self.keys[idx],
+                          generator, self.parts, origins=origins,
+                          device=self.device)
+        hit, length, payload = _fetch(res.hit, res.length, res.payload)
+        hit, rows = hit[:n], rows[:n]
+        ok = hit & (length[:n] == self.oracle_len[rows]) \
+            & np.all(payload[:n] == self.oracle[rows], axis=1)
+        garbled = int((hit & ~ok).sum())
+        self.reads += n
+        self.garbled += garbled
+        self.missing += int(n - hit.sum())
+        return int(hit.sum()), garbled
+
+    def refresh(self, swarm: Swarm, store, ranks, now, *, generator=None,
+                origins=None):
+        """Serve one padded batch of chunked writes (same-bytes seq-bump
+        refreshes); returns the store."""
+        from .chunked_values import announce_chunked
+        rows, n = self._pad(ranks)
+        self.seqs[rows[:n]] += 1
+        idx = torch.from_numpy(rows).to(self.device)
+        store, _rep = announce_chunked(
+            swarm, self.cfg, store, self.scfg, self.keys[idx],
+            self.vals[idx], self._seqs(rows), now, generator,
+            self.payloads[idx], self.lengths[idx], origins=origins,
+            device=self.device)
+        self.writes += n
+        return store

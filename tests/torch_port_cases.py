@@ -283,3 +283,32 @@ def assert_reports_same(rj, rt, what):
             assert np.array_equal(a, np.asarray(b)), f"{what}: {k}"
         else:
             assert a == b, f"{what}: {k} {a!r} != {b!r}"
+
+
+# ---------------------------------------------------------------------------
+# the PHT index: one batch shape for JAX
+# ---------------------------------------------------------------------------
+
+def patch_index_widths(mp, width):
+    """Pad every index store batch of both packages to ``width`` rows
+    (wider batches keep their own power of two), and run JAX's trie-node
+    hash at one shape, ``[width, PW]`` (its SHA-1 unroll otherwise
+    compiles once per batch shape).  ``mp`` is a ``MonkeyPatch``."""
+    import jax.numpy as jnp
+    from opendht_tpu.models import index as ji
+    from opendht_tpu_torch.models import index as ti
+    from opendht_tpu_torch.models.storage import pow2_width
+    hash_j = ji._trie_node_hash
+
+    def padded_hash(spec, bits, depth):
+        m = bits.shape[0]
+        if bits.ndim != 2 or m > width:
+            return hash_j(spec, bits, depth)
+        pad = width - m
+        out = hash_j(spec, jnp.pad(jnp.asarray(bits), ((0, pad), (0, 0))),
+                     jnp.pad(jnp.asarray(depth), (0, pad)))
+        return out[:m]
+    mp.setattr(ji, "_trie_node_hash", padded_hash)
+    for mod in (ji, ti):
+        mp.setattr(mod, "_pow2_width",
+                   lambda m, floor=16: max(width, pow2_width(m, floor)))
