@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup engine, its chaos engine, its storage
 plane with chunked values, its serve engines (burst, and resident: one
-CUDA graph a macro step), its swarm-health monitor, its PHT index and
-its always-on soak engine on one CUDA card and hold each of its CUDA
+CUDA graph a macro step), its swarm-health monitor, its PHT index, its
+always-on soak engine and its table-sharded engines (ranks over
+``torch.distributed``) on one CUDA card and hold each of its CUDA
 kernels against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with one NVIDIA card and
@@ -147,7 +148,31 @@ Phases (any failure exits non-zero and prints no result line):
    or garbled read, non-empty answers and recall@8 before the first
    fault, the monitor's identities, value survival — and one profiled
    second of each leg;
-18. the monitor at 10M nodes, last (it kills nodes and heals the tables
+18. the sharded engines (``parallel/``): card vs CPU at 4,096 nodes over
+   2 gloo ranks sharing the card (run after phase 16), each rank running
+   every call on the card and on a second gloo group of CPU tensors —
+   the while, burst (with lifecycle), compacted and rebalanced
+   formulations at ``capacity_factor`` inf / 2.0 / 0.25, plain tables,
+   the traced and chaos engines (trace and strikes), a
+   ``ShardedServeEngine`` replay and cache-on open loop, two monitor
+   sweeps with ``mesh=`` — every output equal; then (after phase 13)
+   ``sharded_path``: one rank over NCCL in this process at 10M ×
+   1,048,576 on the main swarm, the ladder local / ``local_respond`` /
+   uncapped / cf=2.0 from the main path's origins (each equal to the
+   local engine; done, recall@8, lookups/s, overhead fractions, the
+   routed rungs' K1 launches, peak memory); and (after phase 17) 4 gloo ranks sharing the
+   card: ``sharded_ranks`` at ``bench.py --mode sharded``'s 1M nodes ×
+   262,144 lookups (cf=inf compacted and rebalanced equal to the local
+   engine from the gathered per-rank origins; cf=2.0 done and recall,
+   dropped share, bytes a routed round), ``sharded_chaos`` at 65,536
+   nodes (``--mode chaos-lookup``'s faults: kill 0.10, Byzantine 0.05,
+   drop 0.15; defended and undefended honest recall, strikes equal on
+   every rank) and ``sharded_serve`` at 65,536 nodes (``--mode
+   serve``'s schedule, cache on: conservation, non-empty answers,
+   recall@8, the rows that rode the init ``all_to_all`` — counted in
+   the routed exchange, summed over ranks — = the probed non-hit rows,
+   p50 / p99);
+19. the monitor at 10M nodes, last (it kills nodes and heals the tables
    in place): ``bench.py --mode monitor``'s defaults (12 sweeps, period
    4, fresh_ttl 2, stale threshold 0.25, miss limit 2, kill 0.05 a sweep
    + heal), depth 22 (sweep 0 crawls 4,194,304 buckets), K1 engine —
@@ -161,7 +186,9 @@ spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
 ``serve_path``, ``serve_kernel_times``, ``resident_replay``,
 ``resident_leg``, ``resident_path``, ``resident_profile``,
 ``resident_vs_burst``, ``chunked_path``, ``index_path``,
-``soak_leg``, ``soak_ledger``, ``soak_profile``, ``monitor_sweep`` and
+``soak_leg``, ``soak_ledger``, ``soak_profile``,
+``sharded_card_vs_cpu``, ``sharded_path``, ``sharded_ranks``,
+``sharded_chaos``, ``sharded_serve``, ``monitor_sweep`` and
 ``monitor_path`` lines, ``elapsed`` lines between phases, a ``kernels``
 JSON line (each row with its
 launches on every path — a graph replay counts the kernels its capture
@@ -972,17 +999,21 @@ def layer_times(sw, swarm, cfg, targets, gen) -> dict:
     return out
 
 def same_tensors(a, b) -> bool:
-    """Exact equality of two results: tensors, numpy arrays, ``None``,
-    numbers and (named) tuples of them, a card result against a CPU
-    one."""
+    """Exact equality of two results: tensors (dtype, shape and values),
+    numpy arrays, ``None``, numbers and dicts / (named) tuples of them, a
+    card result against a CPU one."""
     import torch
     import numpy as np
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
-                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+                and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
                 and a.dtype == b.dtype and np.array_equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(same_tensors(a[k], b[k]) for k in a))
     if isinstance(a, (tuple, list)):
         return (isinstance(b, (tuple, list)) and len(a) == len(b)
                 and all(same_tensors(x, y) for x, y in zip(a, b)))
@@ -3426,6 +3457,573 @@ def phase_soak_full(cfg, card, failures):
     return path
 
 
+# ---------------------------------------------------------------------------
+# the sharded engines: ranks over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARDED_CMP_NODES = 4096    # the card-vs-CPU check
+SHARDED_RANK_NODES = 1_000_000      # bench.py --mode sharded's nodes
+SHARDED_RANK_LOOKUPS = 1 << 18
+SHARDED_SMALL_NODES = 65_536        # bench.py --mode chaos / serve's nodes
+SHARDED_CHAOS_LOOKUPS = 1 << 16
+RANK_TIMEOUT = 120.0        # seconds a collective may wait
+
+
+def sharded_cmp_rank(mesh):
+    """One rank of the card-vs-CPU check: each call runs on this rank's
+    card group and on a second gloo group of CPU tensors; returns
+    ``{call: equal}`` (this rank's outputs compared)."""
+    import torch
+    import torch.distributed as dist
+    from opendht_tpu_torch.models import monitor as mon
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.parallel import mesh as pm
+    from opendht_tpu_torch.parallel import sharded as ps
+
+    cpu = pm.Mesh(mesh.rank, mesh.size, torch.device("cpu"), "gloo",
+                  group=dist.new_group(backend="gloo"))
+    cfg = sw.SwarmConfig.for_nodes(SHARDED_CMP_NODES, device="cpu")
+    cfg_p = cfg._replace(aug_tables=False)
+    gen = torch.Generator().manual_seed(11)
+    aug = sw.churn(sw.build_swarm(cfg, gen, device="cpu"), gen, 0.25, cfg)
+    plain = sw.churn(sw.build_swarm(cfg_p, gen, device="cpu"), gen, 0.25,
+                     cfg_p)
+    byz = sw.corrupt_swarm(aug, gen, 0.1, cfg)
+    n_l = 1024
+    tg = torch.randint(0, 2**32, (n_l, 5), generator=gen)
+    og = {k: sw._sample_origins(gen, s.alive if k != "byz"
+                                else s.alive & ~s.byzantine, n_l)
+          for k, s in (("aug", aug), ("plain", plain), ("byz", byz))}
+    swarms = {"aug": (aug, cfg), "plain": (plain, cfg_p), "byz": (byz, cfg)}
+
+    def shard(m, name):
+        s, c = swarms[name]
+        s = s.to(m.device)
+        return s._replace(tables=pm.shard_rows(m, s.tables).clone()), c
+
+    def rows(m, x):
+        return pm.shard_rows(m, x.to(m.device))
+
+    def lookup(m, name, **kw):
+        s, c = shard(m, name)
+        st = {}
+        res = ps.sharded_lookup(s, c, rows(m, tg), m, origins=rows(m, og[name]),
+                                stats=st, **kw)
+        st.pop("merge_widths", None)     # the plain rank merge's only
+        return [list(res), st]
+
+    def traced(m):
+        s, c = shard(m, "aug")
+        return ps.traced_sharded_lookup(s, c, rows(m, tg), m,
+                                        origins=rows(m, og["aug"]))
+
+    def chaos(m, faults, cf):
+        s, c = shard(m, "byz")
+        return ps.chaos_sharded_lookup(s, c, rows(m, tg), m, faults=faults,
+                                       origins=rows(m, og["byz"]),
+                                       capacity_factor=cf,
+                                       collect_trace=True)
+
+    def serve(m):
+        s, c = shard(m, "aug")
+        eng = sv.ShardedServeEngine(s, c, slots=n_l, mesh=m, admit_cap=n_l)
+        rep, st = sv.closed_loop_replay(s, c, tg.to(m.device), engine=eng,
+                                        origins=og["aug"].to(m.device))
+        eng = sv.ShardedServeEngine(s, c, slots=256, mesh=m, admit_cap=64,
+                                    cache_slots=256)
+        ts_, keys, klass = sv.poisson_zipf_events(400.0, 1.0, 64, 1.1,
+                                                  seed=5)
+        g = torch.Generator().manual_seed(7)
+        adm = [sw._sample_origins(g, aug.alive, 64) for _ in range(400)]
+        clock, sleep = virtual_clock()
+        loop = sv.serve_open_loop(eng, ts_, keys, klass=klass, clock=clock,
+                                  sleep=sleep,
+                                  origins_of=lambda i: adm[i].to(m.device))
+        loop.pop("layer_walls_s")
+        return [list(rep), list(st), loop, eng.xchg_init_rows,
+                list(eng.cache)]
+
+    def monitor(m):
+        s, c = shard(m, "aug")
+        eng = mon.MonitorEngine(s, c, mesh=m)
+        g = torch.Generator().manual_seed(8)
+        out = []
+        for k in range(2):
+            if k:
+                eng.kill(0.05, torch.rand((c.n_nodes,), generator=g))
+                draws = [torch.rand((c.n_nodes, c.bucket_k), generator=g)
+                         for _ in range(c.n_buckets)]
+                eng.heal(lambda b: draws[b].to(m.device))
+            buckets = eng.select_buckets()
+            o = sw._sample_origins(g, eng.swarm.alive.cpu(), len(buckets))
+            rec, res = eng.sweep(origins=o)
+            out.append([rec, list(res), list(eng.fresh),
+                        eng.swarm.tables.clone()])
+        return out
+
+    inf = float("inf")
+    calls = {
+        "while cf=inf": lambda m: lookup(m, "aug", capacity_factor=inf),
+        "while cf=2.0": lambda m: lookup(m, "aug", capacity_factor=2.0),
+        "while cf=0.25": lambda m: lookup(m, "aug", capacity_factor=0.25),
+        "burst+lifecycle cf=2.0": lambda m: lookup(
+            m, "aug", capacity_factor=2.0, compact=False,
+            track_lifecycle=True),
+        "compacted cf=inf": lambda m: lookup(m, "aug", capacity_factor=inf,
+                                             compact=True),
+        "compacted cf=2.0": lambda m: lookup(m, "aug", capacity_factor=2.0,
+                                             compact=True),
+        "compacted cf=0.25": lambda m: lookup(m, "aug", capacity_factor=0.25,
+                                              compact=True),
+        "rebalanced cf=inf": lambda m: lookup(m, "aug", capacity_factor=inf,
+                                              rebalance=True),
+        "plain tables while cf=2.0": lambda m: lookup(m, "plain",
+                                                      capacity_factor=2.0),
+        "plain tables compacted cf=0.25": lambda m: lookup(
+            m, "plain", capacity_factor=0.25, compact=True),
+        "traced cf=2.0": traced,
+        "chaos random defended cf=2.0 (trace, strikes)": lambda m: chaos(
+            m, sw.LookupFaults(seed=11), 2.0),
+        "chaos eclipse drop 0.2 cf=0.25 (trace, strikes)": lambda m: chaos(
+            m, sw.LookupFaults(seed=12, eclipse=True, drop_frac=0.2), 0.25),
+        "serve replay + cache-on open loop": serve,
+        "monitor sweeps x2 (kill, heal)": monitor,
+    }
+    out = {}
+    for name, fn in calls.items():
+        a = fn(cpu)
+        b = fn(mesh)
+        out[name] = same_tensors(a, b)
+    out["transport"] = mesh.transport
+    return out
+
+
+def phase_sharded_card_vs_cpu(dev, failures) -> None:
+    """The sharded engines card vs CPU at 4,096 nodes over 2 gloo ranks:
+    every call of :func:`sharded_cmp_rank` equal on both ranks."""
+    from opendht_tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    outs = pm.spawn(sharded_cmp_rank, 2, backend="gloo", device="cuda:0",
+                    timeout=RANK_TIMEOUT, limit=600.0)
+    transport = outs[0].pop("transport")
+    for o in outs[1:]:
+        o.pop("transport")
+    eq = {k: all(o[k] for o in outs) for k in outs[0]}
+    log("sharded_card_vs_cpu " + json.dumps({
+        "n_nodes": SHARDED_CMP_NODES, "ranks": 2, "transport": transport,
+        "equal": eq, "all_equal": all(eq.values()),
+        "wall_s": time.perf_counter() - t0}))
+    for k, v in eq.items():
+        if not v:
+            failures.append(f"sharded card vs CPU differs: {k}")
+
+
+def phase_sharded_path(sw, swarm, cfg, targets, origins, card, failures):
+    """The sharded engine at full width on one card: D=1 over NCCL, in
+    this process, on the main path's swarm, targets and origins.  The
+    ladder — the local engine (``lookup(compact=False)``), the routed
+    loop answering locally (``local_respond``), routed uncapped, routed
+    at cf=2.0 — each timed; the routed results equal the local one.
+    Returns the launch counts of the three routed rungs (the local rung
+    runs before the counts are set to 0)."""
+    import tempfile
+    import torch
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.parallel import mesh as pm
+    from opendht_tpu_torch.parallel import sharded as ps
+
+    dev = swarm.ids.device
+    store = tempfile.mkdtemp(prefix="mesh-")
+    mesh = pm.make_mesh(1, 0, backend="nccl", device=dev,
+                        init_method="file://" + os.path.join(store, "s"),
+                        timeout=RANK_TIMEOUT)
+    try:
+        stats, exchange, res, walls = {}, {}, {}, {}
+
+        def routed_cf2():
+            exchange.clear()
+            return ps.sharded_lookup(swarm, cfg, targets, mesh,
+                                     origins=origins, capacity_factor=2.0,
+                                     exchange=exchange)
+
+        def timed(fn):
+            w = []
+            for _ in range(1 + TIMED_RUNS):      # the first is a warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn()
+                torch.cuda.synchronize()
+                w.append(time.perf_counter() - t0)
+            return r, w[1:]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res["local"], walls["local"] = timed(
+            lambda: sw.lookup(swarm, cfg, targets, origins=origins,
+                              compact=False, device=dev))
+        # Launches are counted over the routed rungs alone.
+        routed = {
+            "local_respond": lambda: ps.sharded_lookup(
+                swarm, cfg, targets, mesh, origins=origins,
+                local_respond=True),
+            "routed_uncapped": lambda: ps.sharded_lookup(
+                swarm, cfg, targets, mesh, origins=origins,
+                capacity_factor=float("inf"), stats=stats),
+            "routed_cf2": routed_cf2,
+        }
+        kernels.reset_launches()
+        mesh.reset_counters()
+        for name, fn in routed.items():
+            res[name], walls[name] = timed(fn)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        calls = dict(mesh.calls)
+        truth = sw.true_closest(swarm, cfg, targets[:N_RECALL], device=dev)
+        local = res["local"]
+        same = {k: all(torch.equal(a, b) for a, b in zip(r, local))
+                for k, r in res.items() if k != "local"}
+        wall = {k: statistics.median(v) for k, v in walls.items()}
+        n_l = targets.shape[0]
+        out = {
+            "n_nodes": cfg.n_nodes, "n_lookups": n_l, "ranks": 1,
+            "backend": mesh.backend, "formulation": stats.get("formulation"),
+            "equal_to_local": same,
+            "lookups_per_s": {k: n_l / v for k, v in wall.items()},
+            "wall_s": wall, "walls_s": walls,
+            "overhead_frac": {k: wall[k] / wall["local"] - 1
+                              for k in wall if k != "local"},
+            "done_frac": float(res["routed_cf2"].done.float().mean()),
+            "recall_at_8": recall_at(truth, res["routed_cf2"].found[:N_RECALL]),
+            "median_hops": float(res["routed_cf2"].hops.float().median()),
+            "dropped": int(exchange["dropped"]),
+            "attempted": int(exchange["attempted"]),
+            "collectives": calls, "launches": launches,
+            "peak_memory_bytes": peak, "card": card}
+        log("sharded_path " + json.dumps(out))
+        if not all(same.values()):
+            failures.append(f"sharded path differs from the local engine: "
+                            f"{same}")
+        if out["done_frac"] != 1.0 or out["recall_at_8"] < 0.99:
+            failures.append(f"sharded path: done {out['done_frac']}, "
+                            f"recall@8 {out['recall_at_8']}")
+        if launches["merge_round"] <= 0:
+            failures.append("K1 was not launched on the routed rounds")
+        return launches
+    finally:
+        mesh.close()
+
+
+def _rank_swarm(mesh, n_nodes, seed, kill=0.0, byz=0.0):
+    """The same swarm on every rank (built on the card from ``seed``),
+    then this rank's shard; ``(full, shard, cfg)``."""
+    import torch
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.parallel import mesh as pm
+    dev = mesh.device
+    cfg = sw.SwarmConfig.for_nodes(n_nodes, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    full = sw.build_swarm(cfg, gen, device=dev)
+    if kill:
+        full = sw.churn(full, gen, kill, cfg)
+    if byz:
+        full = sw.corrupt_swarm(full, gen, byz, cfg)
+    shard = full._replace(tables=pm.shard_rows(mesh, full.tables).clone())
+    return full, shard, cfg
+
+
+def _rank_origins(mesh, alive, ll, seed):
+    """This rank's origins, drawn from its own generator, and every
+    rank's concatenated (the local engine's identity input)."""
+    import torch
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.parallel import mesh as pm
+    g = torch.Generator(device=mesh.device).manual_seed(seed + mesh.rank)
+    mine = sw._sample_origins(g, alive, ll)
+    return mine, pm.gather_rows(mesh, mine)
+
+
+def _timed(mesh, fn):
+    """``(result, wall seconds)`` of a collective call: every rank
+    synchronized and met before and after."""
+    import torch
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else lambda: None)
+    sync()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    r = fn()
+    sync()
+    mesh.barrier()
+    return r, time.perf_counter() - t0
+
+
+def sharded_ranks_rank(mesh):
+    """One of 4 ranks sharing the card (1M nodes × 262,144 lookups):
+    cf=inf compacted and rebalanced against the local engine, then the
+    default dispatch at cf=2.0 with its exchange counters."""
+    import torch
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.parallel import mesh as pm
+    from opendht_tpu_torch.parallel import sharded as ps
+    full, shard, cfg = _rank_swarm(mesh, SHARDED_RANK_NODES, 0)
+    n_l = SHARDED_RANK_LOOKUPS
+    ll = n_l // mesh.size
+    tg_all = torch.randint(0, 2**32, (n_l, 5), device=mesh.device,
+                           generator=torch.Generator(
+                               device=mesh.device).manual_seed(1))
+    tg = pm.shard_rows(mesh, tg_all)
+    og, og_all = _rank_origins(mesh, full.alive, ll, 100)
+    local = None
+    if mesh.rank == 0:
+        local = sw.lookup(full, cfg, tg_all, origins=og_all, compact=False,
+                          device=mesh.device)
+    truth = (sw.true_closest(full, cfg, tg_all[:N_RECALL],
+                             device=mesh.device)
+             if mesh.rank == 0 else None)
+    full = full._replace(tables=None)
+    kernels.reset_launches()
+    mesh.reset_counters()
+    out, inf = {}, float("inf")
+    for name, kw in (("compacted_inf", dict(capacity_factor=inf,
+                                            compact=True)),
+                     ("rebalanced_inf", dict(capacity_factor=inf,
+                                             rebalance=True)),
+                     ("default_cf2", dict(capacity_factor=2.0))):
+        st, ex = {}, {}
+        bytes0 = sum(mesh.bytes_sent.values())
+        calls0 = mesh.calls["all_to_all"]
+        res, wall = _timed(mesh, lambda: ps.sharded_lookup(
+            shard, cfg, tg, mesh, origins=og, stats=st, exchange=ex, **kw))
+        sent = sum(mesh.bytes_sent.values()) - bytes0
+        routed = (mesh.calls["all_to_all"] - calls0) // 2
+        got = [pm.gather_rows(mesh, x) for x in res]
+        dropped = mesh.host_ints([int(ex["dropped"]), int(ex["attempted"])])
+        rec = {"wall_s": wall, "lookups_per_s": n_l / wall,
+               "formulation": st["formulation"], "routed_rounds": routed,
+               "dropped": dropped[0], "attempted": dropped[1],
+               "bytes_sent_rank": sent}
+        if mesh.rank == 0:
+            rec["equal_to_local"] = all(torch.equal(a, b)
+                                        for a, b in zip(got, local))
+            rec["done_frac"] = float(got[2].float().mean())
+            rec["recall_at_8"] = recall_at(truth, got[0][:N_RECALL])
+            rec["median_hops"] = float(got[1].float().median())
+        out[name] = rec
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["collectives"] = dict(mesh.calls)
+    out["transport"] = mesh.transport
+    return out
+
+
+def phase_sharded_ranks(card, failures):
+    """4 gloo ranks sharing the card at ``bench.py --mode sharded``'s 1M
+    nodes × 262,144 lookups.  Returns the summed launch counts."""
+    from opendht_tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    outs = pm.spawn(sharded_ranks_rank, 4, backend="gloo", device="cuda:0",
+                    timeout=RANK_TIMEOUT, limit=600.0)
+    r0 = outs[0]
+    launches = {k: sum(o["launches"][k] for o in outs)
+                for k in r0["launches"]}
+    legs = {k: r0[k] for k in ("compacted_inf", "rebalanced_inf",
+                               "default_cf2")}
+    for k, v in legs.items():
+        v["dropped_share"] = v["dropped"] / max(1, v["attempted"])
+        v["bytes_per_round_all_ranks"] = (sum(o[k]["bytes_sent_rank"]
+                                              for o in outs)
+                                          / max(1, v["routed_rounds"]))
+    log("sharded_ranks " + json.dumps({
+        "n_nodes": SHARDED_RANK_NODES, "n_lookups": SHARDED_RANK_LOOKUPS,
+        "ranks": 4, "transport": r0["transport"],
+        "walls_note": "four ranks time-sharing one card through gloo "
+                      "(bytes through host memory): not a four-card number",
+        "legs": legs, "collectives_rank0": r0["collectives"],
+        "launches": launches, "wall_s": time.perf_counter() - t0,
+        "card": card}))
+    for k in ("compacted_inf", "rebalanced_inf"):
+        if not legs[k]["equal_to_local"]:
+            failures.append(f"sharded ranks {k} differs from the local "
+                            f"engine")
+    d = legs["default_cf2"]
+    if d["done_frac"] != 1.0 or d["recall_at_8"] < 0.99:
+        failures.append(f"sharded ranks cf=2.0: done {d['done_frac']}, "
+                        f"recall@8 {d['recall_at_8']}")
+    if launches["merge_round"] <= 0:
+        failures.append("K1 was not launched on the sharded ranks")
+    return launches
+
+
+def sharded_chaos_rank(mesh):
+    """One of 4 ranks: the chaos grid's faults at 65,536 nodes, defended
+    and undefended; strikes gathered to check every rank holds the
+    same."""
+    import torch
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.parallel import mesh as pm
+    from opendht_tpu_torch.parallel import sharded as ps
+    full, shard, cfg = _rank_swarm(mesh, SHARDED_SMALL_NODES, 0, kill=0.10,
+                                   byz=0.05)
+    n_l = SHARDED_CHAOS_LOOKUPS
+    tg_all = torch.randint(0, 2**32, (n_l, 5), device=mesh.device,
+                           generator=torch.Generator(
+                               device=mesh.device).manual_seed(1))
+    tg = pm.shard_rows(mesh, tg_all)
+    og, _ = _rank_origins(mesh, full.alive & ~full.byzantine,
+                          n_l // mesh.size, 200)
+    kernels.reset_launches()
+    out = {}
+    for name, defend in (("defended", True), ("undefended", False)):
+        faults = sw.LookupFaults(drop_frac=0.15, seed=3, defend=defend)
+        (res, strikes), wall = _timed(mesh, lambda: ps.chaos_sharded_lookup(
+            shard, cfg, tg, mesh, faults=faults, origins=og))
+        every = mesh.all_gather(strikes)
+        got = [pm.gather_rows(mesh, x) for x in res]
+        rec = {"wall_s": wall, "lookups_per_s": n_l / wall,
+               "strikes_same_on_every_rank": bool(
+                   (every == every[0]).all()),
+               "convicted": int((strikes >= faults.strike_limit).sum())}
+        if mesh.rank == 0:
+            r = sw.LookupResult(*got)
+            rec["honest_recall_at_8"] = float(sw.honest_recall(
+                full, cfg, sw.LookupResult(r.found[:N_RECALL],
+                                           r.hops[:N_RECALL],
+                                           r.done[:N_RECALL]),
+                tg_all[:N_RECALL]).mean())
+            rec["done_frac"] = float(r.done.float().mean())
+            byz = full.byzantine
+            conv = strikes >= faults.strike_limit
+            rec["convicted_byzantine_frac"] = float(
+                (conv & byz).sum() / byz.sum().clamp(min=1))
+            rec["convicted_honest_frac"] = float(
+                (conv & ~byz).sum() / (~byz).sum())
+        out[name] = rec
+    out["launches"] = dict(kernels.LAUNCHES)
+    return out
+
+
+def phase_sharded_chaos(card, failures):
+    from opendht_tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    outs = pm.spawn(sharded_chaos_rank, 4, backend="gloo", device="cuda:0",
+                    timeout=RANK_TIMEOUT, limit=600.0)
+    launches = {k: sum(o["launches"][k] for o in outs)
+                for k in outs[0]["launches"]}
+    legs = {k: outs[0][k] for k in ("defended", "undefended")}
+    same = all(o[k]["strikes_same_on_every_rank"] for o in outs
+               for k in legs)
+    log("sharded_chaos " + json.dumps({
+        "n_nodes": SHARDED_SMALL_NODES, "n_lookups": SHARDED_CHAOS_LOOKUPS,
+        "ranks": 4, "kill_frac": 0.10, "byzantine_frac": 0.05,
+        "drop_frac": 0.15, "poison": "random", "legs": legs,
+        "strikes_same_on_every_rank": same, "launches": launches,
+        "wall_s": time.perf_counter() - t0, "card": card}))
+    if not same:
+        failures.append("sharded chaos: ranks hold different strikes")
+    if launches["merge_round"] <= 0:
+        failures.append("K1 was not launched on the sharded chaos path")
+    dfd, und = legs["defended"], legs["undefended"]
+    if dfd["done_frac"] != 1.0 or not (dfd["honest_recall_at_8"]
+                                       > und["honest_recall_at_8"]):
+        failures.append(f"sharded chaos: defended done {dfd['done_frac']}, "
+                        f"recall {dfd['honest_recall_at_8']} vs undefended "
+                        f"{und['honest_recall_at_8']}")
+    return launches
+
+
+def sharded_serve_rank(mesh):
+    """One of 4 ranks: ``bench.py --mode serve``'s schedule at 65,536
+    nodes through the sharded serve engine, cache on, real clock (the
+    ranks' shared reading)."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.ops import kernels
+    full, shard, cfg = _rank_swarm(mesh, SHARDED_SMALL_NODES, 0)
+
+    class Engine(sv.ShardedServeEngine):
+        """Counts the probed admissions' rows and hits, and the init
+        solicitations this rank shipped during them (read from the
+        routed exchange, on the device)."""
+        probed = [0, 0]
+        shipped = 0
+
+        def admit_probed(self, st, keys, slots, origins, rnd):
+            before = self.init_exchange.get("attempted", 0)
+            st, h, f, hp = super().admit_probed(st, keys, slots, origins,
+                                                rnd)
+            self.shipped = (self.shipped + self.init_exchange["attempted"]
+                            - before)
+            self.probed[0] += len(h)
+            self.probed[1] += int(h.sum())
+            return st, h, f, hp
+
+    eng = Engine(shard, cfg, slots=2048, mesh=mesh, cache_slots=4096)
+    ts_, keys, klass = sv.poisson_zipf_events(2000.0, 5.0, 4096, 1.1, seed=7)
+    kernels.reset_launches()
+    rep = sv.serve_open_loop(eng, ts_, keys, klass=klass, burst=2,
+                             duration=float(ts_[-1]) + 1e-9)
+    launches = dict(kernels.LAUNCHES)
+    out = {"summary": serve_summary(rep), "xchg_init_rows": eng.xchg_init_rows,
+           "probed_rows": eng.probed[0], "probed_hits": eng.probed[1],
+           "init_rows_shipped": int(eng.shipped),
+           "init_rows_dropped": int(eng.init_exchange["dropped"]),
+           "conserved": conserved(rep), "launches": launches,
+           "layer_walls_s": rep["layer_walls_s"]}
+    if mesh.rank == 0:
+        found = torch.from_numpy(rep["found"]).to(mesh.device)
+        kt = torch.from_numpy(keys[rep["request"]].astype(np.int64)).to(
+            mesh.device)
+        truth = sw.true_closest(full, cfg, kt, device=mesh.device)
+        out["recall_at_8"] = recall_at(truth, found)
+        out["empty_answers"] = int((found[:, 0] < 0).sum())
+    return out
+
+
+def phase_sharded_serve(card, failures):
+    from opendht_tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    outs = pm.spawn(sharded_serve_rank, 4, backend="gloo", device="cuda:0",
+                    timeout=RANK_TIMEOUT, limit=600.0)
+    r0 = outs[0]
+    launches = {k: sum(o["launches"][k] for o in outs)
+                for k in r0["launches"]}
+    s = r0["summary"]
+    # The probed rows are the whole batch on every rank; the rows that
+    # rode the init exchange are each rank's own: their sum must be the
+    # batch's non-hit rows, and none dropped.
+    shipped = sum(o["init_rows_shipped"] for o in outs)
+    xchg_ok = (all(o["init_rows_dropped"] == 0 for o in outs)
+               and shipped == r0["probed_rows"] - r0["probed_hits"]
+               and all(o["xchg_init_rows"] == shipped for o in outs))
+    same = all(o["summary"] == s for o in outs)
+    log("sharded_serve " + json.dumps({
+        "n_nodes": SHARDED_SMALL_NODES, "ranks": 4, "slots": 2048,
+        "cache_slots": 4096, "arrival_rate": 2000.0, "duration_s": 5.0,
+        **s, "recall_at_8": r0["recall_at_8"],
+        "empty_answers": r0["empty_answers"],
+        "xchg_init_rows": r0["xchg_init_rows"],
+        "probed_rows": r0["probed_rows"], "probed_hits": r0["probed_hits"],
+        "init_rows_shipped": shipped,
+        "shipped_equals_probed_non_hits": xchg_ok,
+        "reports_same_on_every_rank": same,
+        "layer_walls_s": r0["layer_walls_s"], "launches": launches,
+        "wall_s": time.perf_counter() - t0, "card": card}))
+    if not (r0["conserved"] and same and xchg_ok):
+        failures.append(f"sharded serve: conserved {r0['conserved']}, "
+                        f"same reports {same}, xchg rows {xchg_ok}")
+    if launches["merge_round"] <= 0:
+        failures.append("K1 was not launched on the sharded serve path")
+    if r0["empty_answers"] or r0["recall_at_8"] < 0.99:
+        failures.append(f"sharded serve: {r0['empty_answers']} empty "
+                        f"answers, recall@8 {r0['recall_at_8']}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3457,6 +4055,8 @@ def main() -> int:
     phase_resident_monitor_card_vs_cpu(dev, failures)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_index_soak_card_vs_cpu(dev, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_sharded_card_vs_cpu(dev, failures)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # ---- the main path -------------------------------------------------
@@ -3568,12 +4168,20 @@ def main() -> int:
                                      burst_profiles)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_k = phase_chunked_full(sw, swarm, cfg_f, card, failures)
+    # ---- the sharded engines -------------------------------------------
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    launches_sh = phase_sharded_path(sw, swarm, cfg, targets, origins, card,
+                                     failures)
     # ---- the PHT index and the soak (on swarms of their own) -----------
     del res, truth, targets, origins
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_i = phase_index_full(card, failures)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_so = phase_soak_full(cfg, card, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    launches_shr = phase_sharded_ranks(card, failures)
+    launches_shc = phase_sharded_chaos(card, failures)
+    launches_shs = phase_sharded_serve(card, failures)
     # The monitor kills nodes and heals the tables in place: last.
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_m = phase_monitor_full(sw, swarm, cfg, card, failures)
@@ -3581,7 +4189,9 @@ def main() -> int:
                "storage": launches_s, "serve": launches_v,
                "resident": launches_r, "chunked": launches_k,
                "index": launches_i, "soak": launches_so,
-               "monitor": launches_m}
+               "monitor": launches_m, "sharded": launches_sh,
+               "sharded_ranks": launches_shr, "sharded_chaos": launches_shc,
+               "sharded_serve": launches_shs}
     for row in kernel_rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

@@ -9,7 +9,8 @@ chosen device (the card unless the caller asks for the CPU, as every
 entry point resolves it), so both packages then compute on the same state — the
 counterpart of carrying a model's weights across.  Unsigned 32-bit
 arrays widen to int64 (:mod:`opendht_tpu_torch.ops.u32`); tables keep
-their bytes.
+their bytes.  For the sharded engines, :func:`swarm_shard_from_numpy`
+and :func:`state_shard_from_numpy` give one rank its rows.
 """
 
 from __future__ import annotations
@@ -44,6 +45,37 @@ def swarm_from_numpy(ids, tables, alive, byzantine=None,
                  alive=_tensor(alive, bool, device),
                  byzantine=(None if byzantine is None
                             else _tensor(byzantine, bool, device)))
+
+
+def _rank_rows(x, rank: int, size: int):
+    """Rows ``[rank·n/size, (rank+1)·n/size)`` of a host array."""
+    x = np.asarray(x)
+    n = x.shape[0]
+    if n % size:
+        raise ValueError(f"{n} rows do not divide the {size}-rank mesh")
+    m = n // size
+    return x[rank * m:(rank + 1) * m]
+
+
+def swarm_shard_from_numpy(ids, tables, alive, byzantine=None, *,
+                           rank: int, size: int, device=None) -> Swarm:
+    """One rank's shard of a JAX swarm for the sharded engines: its rows
+    of the tables (``P(AXIS)``), and the ids, alive and byzantine masks
+    whole (``P()``)."""
+    return swarm_from_numpy(ids, _rank_rows(tables, rank, size), alive,
+                            byzantine, device=device)
+
+
+def state_shard_from_numpy(targets, idx, dist, queried, done, hops,
+                           admitted_round=None, completed_round=None, *,
+                           rank: int, size: int, device=None) -> LookupState:
+    """One rank's rows of a JAX sharded ``LookupState`` (a sharded serve
+    engine's state too): the rows ``[r·C/D, (r+1)·C/D)`` of every
+    field."""
+    fields = [None if x is None else _rank_rows(x, rank, size)
+              for x in (targets, idx, dist, queried, done, hops,
+                        admitted_round, completed_round)]
+    return state_from_numpy(*fields, device=device)
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:

@@ -47,6 +47,8 @@ import torch
 
 from ..ops.u32 import shl32
 from ..ops.xor_metric import N_LIMBS
+from ..parallel.mesh import gather_rows, shard_rows
+from ..parallel.sharded import sharded_lookup
 from .swarm import (
     LookupFaults,
     LookupResult,
@@ -231,15 +233,21 @@ class MonitorEngine:
     lookups (the plain engine, or with ``faults`` the defended chaos
     engine) → one fold → one read of its statistics.
     ``track_freshness=False`` turns the plane off (the sweeps still
-    run).  ``mesh`` (the sharded engine) is not ported and raises."""
+    run).  ``mesh`` routes the sweeps through the table-sharded engine
+    (:func:`~opendht_tpu_torch.parallel.sharded.sharded_lookup`, taking
+    precedence over ``faults`` as in JAX): ``swarm`` is then the rank's
+    shard, every rank runs the same sweeps, each probes its rows of the
+    sweep's targets, and the results are gathered so that the
+    (replicated) freshness plane folds the whole sweep on every rank."""
 
     def __init__(self, swarm: Swarm, cfg: SwarmConfig,
                  mcfg: MonitorConfig | None = None, mesh=None,
                  faults: LookupFaults | None = None,
-                 track_freshness: bool = True, device=None):
+                 track_freshness: bool = True, device=None,
+                 capacity_factor: float = 2.0):
         if mesh is not None:
-            raise NotImplementedError(
-                "the sharded monitor (mesh=) is not ported yet")
+            device = mesh.device
+        self.capacity_factor = capacity_factor
         self.device = resolve_device(device)
         _require_on(swarm, self.device)
         self.swarm, self.cfg = swarm, cfg
@@ -291,15 +299,21 @@ class MonitorEngine:
 
     def heal(self, draws) -> None:
         """Routing-table maintenance between sweeps (:func:`heal_swarm`,
-        in place; ``draws`` as it takes them)."""
-        self.swarm = heal_swarm(self.swarm, self.cfg, draws)
+        in place; ``draws`` as it takes them; over a mesh each rank
+        heals its shard's rows)."""
+        rows = None
+        if self.mesh is not None:
+            m = self.cfg.n_nodes // self.mesh.size
+            rows = slice(self.mesh.rank * m, (self.mesh.rank + 1) * m)
+        self.swarm = heal_swarm(self.swarm, self.cfg, draws, rows=rows)
 
     # -- probe scheduling
 
     def select_buckets(self) -> np.ndarray:
         """The next sweep's bucket set (host, numpy): the due, deficit and
         pending triggers, topped up with the longest-unprobed buckets to
-        ``ceil(G / period)`` and rounded up to a power-of-two width."""
+        ``ceil(G / period)`` (and, over a mesh, to at least its size) and
+        rounded up to a power-of-two width."""
         m, g, s = self.mcfg, self.n_buckets, self.sweep_idx
         age_p = s - self.last_probed
         due = age_p >= m.period
@@ -311,6 +325,8 @@ class MonitorEngine:
         sel = np.flatnonzero(due)
         budget = -(-g // m.period)
         width = max(len(sel), budget, 1)
+        if self.mesh is not None:
+            width = max(width, self.mesh.size)
         width = min(g, 1 << (width - 1).bit_length())
         if len(sel) < width:
             rest = np.flatnonzero(~due)
@@ -322,6 +338,13 @@ class MonitorEngine:
 
     def _run_lookup(self, targets: torch.Tensor, generator, origins
                     ) -> LookupResult:
+        if self.mesh is not None:
+            m = self.mesh
+            res = sharded_lookup(
+                self.swarm, self.cfg, shard_rows(m, targets), m, generator,
+                origins=None if origins is None else shard_rows(m, origins),
+                capacity_factor=self.capacity_factor)
+            return LookupResult(*[gather_rows(m, x) for x in res])
         if self.faults is not None:
             res, _ = chaos_lookup(self.swarm, self.cfg, targets, generator,
                                   self.faults, origins=origins,

@@ -65,6 +65,8 @@ import torch
 from ..ops import kernels
 from ..ops.u32 import MASK32, U32_MAX, mul32
 from ..ops.xor_metric import N_LIMBS, merge_ladder_widths
+from ..parallel.mesh import gather_rows, shard_rows
+from ..parallel.sharded import sharded_lookup_init, sharded_lookup_step
 from ..utils.rate_limiter import TokenBucket
 from .swarm import (
     LookupResult,
@@ -448,6 +450,128 @@ class ServeEngine:
         numpy arrays, read back in one transfer."""
         return _fetch(*_snapshot(self.swarm, self.cfg, st))
 
+    def all_done(self, st) -> bool:
+        """Whether no slot is pending (one readback)."""
+        return bool(st.done.all())
+
+    def clock(self) -> float:
+        """The serve loop's default time source."""
+        return time.perf_counter()
+
+
+class ShardedServeEngine(ServeEngine):
+    """The serve engine over a mesh of ranks: each rank holds its rows of
+    the ``[slots]`` state (``P(AXIS)``) and its shard of the tables, and
+    advances its rows with the routed round
+    (:func:`~opendht_tpu_torch.parallel.sharded.sharded_lookup_step`).
+    The host loop runs on every rank alike: admissions, expiries and
+    cache fills take the whole batch as host arrays (the same on every
+    rank); each rank seeds its rows of an admission through the routed
+    init, and the seeded rows are gathered and scattered into the
+    global slot axis.  :meth:`snapshot` gathers every rank's rows, and
+    :meth:`clock` / :meth:`all_done` are collective, so every rank takes
+    the loop's decisions together.  The result cache is replicated and
+    probed before the routed init: a hit row's origin is blanked, so it
+    never rides the ``all_to_all``; :attr:`xchg_init_rows` counts the
+    admitted rows that were no hit (JAX's count), and
+    :attr:`init_exchange` accumulates what this rank's rows shipped on
+    the init ``all_to_all`` (``attempted`` / ``dropped``, device scalars,
+    :func:`~opendht_tpu_torch.parallel.sharded._route_respond`).
+    ``slots`` and ``admit_cap`` must divide the mesh."""
+
+    def __init__(self, swarm: Swarm, cfg: SwarmConfig, slots: int, mesh,
+                 capacity_factor: float = 2.0, admit_cap: int | None = None,
+                 cache_slots: int = 0):
+        super().__init__(swarm, cfg, slots, admit_cap,
+                         cache_slots=cache_slots, device=mesh.device)
+        self.mesh, self.capacity_factor = mesh, capacity_factor
+        d = mesh.size
+        if slots % d or self.admit_cap % d:
+            raise ValueError(f"serve slots {slots} and admit_cap "
+                             f"{self.admit_cap} must divide the "
+                             f"{d}-device mesh")
+        self.local_slots = slots // d
+        self.lo = mesh.rank * self.local_slots
+        self.xchg_init_rows = 0
+        self.init_exchange: dict = {}
+
+    def empty(self) -> LookupState:
+        return empty_serve_state(self.cfg, self.local_slots, self.device)
+
+    def _local_slots(self, slots: torch.Tensor) -> torch.Tensor:
+        """Global slots → this rank's rows (others → the sentinel)."""
+        mine = (slots >= self.lo) & (slots < self.lo + self.local_slots)
+        return torch.where(mine, slots - self.lo, self.local_slots)
+
+    def _routed_admit(self, st, keys, slots, origins, rnd, skip=None):
+        """Seed this rank's rows of the batch through the routed init,
+        gather every rank's seeded rows (one ``all_gather``) and scatter
+        those whose slot is this rank's."""
+        m, s = self.mesh, self.cfg.search_width
+        new = sharded_lookup_init(
+            self.swarm, self.cfg, shard_rows(m, keys), m,
+            shard_rows(m, origins),
+            skip=None if skip is None else shard_rows(m, skip),
+            exchange=self.init_exchange)
+        rows = gather_rows(m, torch.cat(
+            [new.targets, new.idx.to(torch.int64), new.dist,
+             new.queried.to(torch.int64)], dim=1))
+        new = new._replace(targets=rows[:, :N_LIMBS],
+                           idx=rows[:, N_LIMBS:N_LIMBS + s].to(torch.int32),
+                           dist=rows[:, N_LIMBS + s:N_LIMBS + 2 * s],
+                           queried=rows[:, N_LIMBS + 2 * s:] != 0)
+        if skip is not None:
+            slots = torch.where(skip, self.slots, slots)
+        return _scatter_rows_into(st, new, self._local_slots(slots), rnd)
+
+    def admit(self, st, keys, slots, origins, rnd):
+        """Admit the whole micro-batch ``keys [A,5]`` into global
+        ``slots [A]`` (sentinel ``C``) from ``origins [A]``: this rank
+        seeds rows ``[r·A/D, (r+1)·A/D)``."""
+        keys, slots, origins = self._batch(keys, slots, origins)
+        return self._routed_admit(st, keys, slots, origins, rnd)
+
+    def admit_probed(self, st, keys, slots, origins, rnd):
+        keys, slots, origins = self._batch(keys, slots, origins)
+        hit, found, hops = _cache_probe(self.cache, keys)
+        st = self._routed_admit(st, keys, slots, origins, rnd, skip=hit)
+        h, f, hp = _fetch(hit, found, hops)
+        self.xchg_init_rows += int(keys.shape[0] - h.sum())
+        return st, h, f, hp
+
+    def step(self, st, rnd):
+        return sharded_lookup_step(self.swarm, self.cfg, st, self.mesh,
+                                   self.capacity_factor, rnd=rnd)
+
+    def expire(self, st, slots):
+        slots = _upload(slots, torch.int64, self.device)
+        return _expire_slots(st, self._local_slots(slots))
+
+    def snapshot(self, st):
+        """Every rank's rows, gathered (one ``all_gather``) and read back
+        in one transfer."""
+        snap = _snapshot(self.swarm, self.cfg, st)
+        flat = gather_rows(self.mesh, torch.cat(
+            [x.reshape(x.shape[0], -1).to(torch.int64) for x in snap],
+            dim=1))
+        out, c = [], 0
+        for x in snap:
+            w = x[0].numel()
+            out.append(flat[:, c:c + w].reshape(-1, *x.shape[1:]).to(x.dtype))
+            c += w
+        return _fetch(*out)
+
+    def all_done(self, st) -> bool:
+        return int(self.mesh.all_reduce(
+            (~st.done).sum().to(torch.int64), "sum")) == 0
+
+    def clock(self) -> float:
+        """The latest of the ranks' ``perf_counter`` readings (one
+        ``all_reduce``), the same on every rank."""
+        t = torch.tensor([time.perf_counter()], dtype=torch.float64,
+                         device=self.device)
+        return float(self.mesh.all_reduce(t, "max")[0])
+
 
 # ---------------------------------------------------------------------------
 # schedule and admission policy
@@ -690,7 +814,8 @@ def serve_open_loop(engine: ServeEngine, arrival_ts, keys,
     Admission ``i`` draws its ``admit_cap`` origins as
     ``origins_of(i)`` if given, else from ``generator`` (default: seeded
     0).  ``clock`` / ``sleep`` inject the time source (defaults
-    ``time.perf_counter`` / ``time.sleep``); the loop reads the clock at
+    ``engine.clock`` — ``time.perf_counter``, or over a mesh the ranks'
+    shared reading — and ``time.sleep``); the loop reads the clock at
     exactly the points the JAX loop does, so under a deterministic
     virtual clock the whole report is a pure function of the schedule
     and equals the JAX report.
@@ -712,7 +837,7 @@ def serve_open_loop(engine: ServeEngine, arrival_ts, keys,
     card a layer's dispatches may finish inside a later one's wall).
     Per-request arrays are in completion-observation order.
     """
-    clock = clock or time.perf_counter
+    clock = clock or engine.clock
     sleep = sleep or time.sleep
     cfg, c = engine.cfg, engine.slots
     a_cap = engine.admit_cap
@@ -1019,7 +1144,10 @@ def closed_loop_replay(swarm: Swarm, cfg: SwarmConfig,
     serve twin of ``lookup(swarm, cfg, targets, generator)``, with the
     same found/hops/done for the same origins — ``origins [L]`` if
     given, else drawn with ``generator`` (default seeded 0) as
-    ``lookup`` draws them.  Returns ``(LookupResult, final state)``."""
+    ``lookup`` draws them.  Returns ``(LookupResult, final state)``.
+    Through a :class:`ShardedServeEngine` the batch and origins are the
+    whole batch on every rank, and the result and state are this rank's
+    rows (``P(AXIS)``)."""
     l = targets.shape[0]
     eng = engine if engine is not None \
         else ServeEngine(swarm, cfg, slots=l, admit_cap=l, device=device)
@@ -1040,7 +1168,7 @@ def closed_loop_replay(swarm: Swarm, cfg: SwarmConfig,
         for _ in range(n):
             st = eng.step(st, rnd)
             rnd += 1
-        if bool(st.done.all()):         # the one readback a burst
+        if eng.all_done(st):            # the one readback a burst
             break
         burst = 2
     res = LookupResult(found=_finalize(swarm.ids, st, cfg),

@@ -364,9 +364,12 @@ def _build_ids(generator: torch.Generator, cfg: SwarmConfig,
 
 def _build_bucket(tables: torch.Tensor, ids0: torch.Tensor, b: int,
                   u: torch.Tensor, cfg: SwarmConfig,
-                  alive: torch.Tensor | None = None) -> None:
+                  alive: torch.Tensor | None = None,
+                  rows: slice | None = None) -> None:
     """Fill bucket ``b`` of every node's table in place from the uniform
-    draws ``u [N,K]`` (float32).
+    draws ``u [N,K]`` (float32).  With ``rows`` only those nodes' rows
+    are computed (``tables`` then holds just them, as a rank's shard
+    does, and ``u`` is still ``[N,K]``).
 
     Bucket ranges come from a prefix histogram of the sorted ids: a
     bucket's key-space is a dyadic interval fixed by the first
@@ -393,6 +396,8 @@ def _build_bucket(tables: torch.Tensor, ids0: torch.Tensor, b: int,
         counts = torch.bincount(pref, weights=alive.to(torch.float64),
                                 minlength=1 << b_total).to(torch.int64)
     bounds = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    if rows is not None:
+        pref, u = pref[rows], u[rows]
     p = pref if inclusive else pref ^ 1    # own vs sibling interval
     lo, hi = bounds[p], bounds[p + 1]
     size = (hi - lo).to(torch.float32)
@@ -454,14 +459,17 @@ def build_swarm(cfg: SwarmConfig, generator: torch.Generator | None = None,
                  alive=torch.ones((n,), dtype=torch.bool, device=dev))
 
 
-def heal_swarm(swarm: Swarm, cfg: SwarmConfig, draws) -> Swarm:
+def heal_swarm(swarm: Swarm, cfg: SwarmConfig, draws, *,
+               rows: slice | None = None) -> Swarm:
     """Routing-table maintenance after churn: refill every bucket in
     place with members sampled among the alive nodes (the steady state
     of the reference's bucket expiry and refill).  ``draws`` is a
     ``torch.Generator`` on the swarm's device, or a function ``b ->``
     bucket ``b``'s uniforms ``[N,K]`` float32 (a test hands in the JAX
     package's ``fold_in(key, b)`` draws).  The swarm's table is updated
-    in place; the swarm is returned."""
+    in place; the swarm is returned.  ``rows`` heals a shard: the table
+    holds those nodes' rows only (every rank of a mesh draws the whole
+    ``[N,K]`` and keeps its rows, so the shards equal a whole heal)."""
     n, k = cfg.n_nodes, cfg.bucket_k
     if isinstance(draws, torch.Generator):
         gen = draws
@@ -471,7 +479,7 @@ def heal_swarm(swarm: Swarm, cfg: SwarmConfig, draws) -> Swarm:
     ids0 = swarm.ids[:, 0]
     for b in range(cfg.n_buckets):
         _build_bucket(swarm.tables, ids0, b, draws(b), cfg,
-                      alive=swarm.alive)
+                      alive=swarm.alive, rows=rows)
     return swarm
 
 
@@ -568,14 +576,23 @@ def _select_alpha(st: LookupState, cfg: SwarmConfig):
     return sel, sel_d0, sel_pos
 
 
-def lookup_init(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
-                origins: torch.Tensor) -> LookupState:
-    """Seed each lookup from its origin node's own routing table."""
+def _local_respond(swarm: Swarm, cfg: SwarmConfig):
+    """The single-device respond: the solicited nodes' own table rows
+    (:func:`_respond`).  The sharded engines hand the same round a
+    routed respond instead (:mod:`opendht_tpu_torch.parallel.sharded`)."""
+    return lambda tg, nid, nid_d0: _respond(swarm, cfg, tg, nid, nid_d0)
+
+
+def init_impl(ids: torch.Tensor, respond, cfg: SwarmConfig,
+              targets: torch.Tensor, origins: torch.Tensor) -> LookupState:
+    """Seed each lookup from its origin node's own routing table.
+    ``respond(targets, nid, nid_d0)`` says where the tables live: local
+    rows (:func:`_local_respond`) or the routed exchange of the sharded
+    engines."""
     l = targets.shape[0]
     s = cfg.search_width
-    o_d0 = swarm.ids[:, 0][origins.long()] ^ targets[:, 0]
-    resp, resp_d0, _ = _respond(swarm, cfg, targets, origins[:, None],
-                                o_d0[:, None])
+    o_d0 = ids[:, 0][origins.long()] ^ targets[:, 0]
+    resp, resp_d0, _ = respond(targets, origins[:, None], o_d0[:, None])
     pad = max(0, s - resp.shape[1])
     if pad:
         resp = torch.cat([resp, resp.new_full((l, pad), -1)], dim=1)
@@ -590,18 +607,29 @@ def lookup_init(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
         hops=torch.zeros((l,), dtype=torch.int32, device=dev))
 
 
-def round_inputs(swarm: Swarm, cfg: SwarmConfig, st: LookupState):
+def lookup_init(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
+                origins: torch.Tensor) -> LookupState:
+    """Seed each lookup from its origin node's own routing table."""
+    return init_impl(swarm.ids, _local_respond(swarm, cfg), cfg, targets,
+                     origins)
+
+
+def round_inputs(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+                 respond=None):
     """The first half of a round: select α, solicit, and fold the
     solicitations' outcomes into the frontier (answered → queried, dead
-    → evicted).  Returns ``(sel, q_hit, merge_args)``: ``q_hit [L,A]``
-    marks the solicitations that answered, and ``merge_args`` =
-    ``(fr_idx, fr_d0, fr_q, resp_idx, resp_d0)`` are exactly the round
-    merge's inputs."""
+    → evicted).  ``respond`` defaults to the local one
+    (:func:`_local_respond`).  Returns ``(sel, q_hit, merge_args)``:
+    ``q_hit [L,A]`` marks the solicitations that answered, and
+    ``merge_args`` = ``(fr_idx, fr_d0, fr_q, resp_idx, resp_d0)`` are
+    exactly the round merge's inputs."""
     n = cfg.n_nodes
+    if respond is None:
+        respond = _local_respond(swarm, cfg)
     sel, sel_d0, sel_pos = _select_alpha(st, cfg)
     sel = torch.where(st.done[:, None], -1, sel)       # done rows rest
     sel_alive = (sel >= 0) & swarm.alive[sel.clamp(0, n - 1).long()]
-    resp, resp_d0, answered = _respond(swarm, cfg, st.targets, sel, sel_d0)
+    resp, resp_d0, answered = respond(st.targets, sel, sel_d0)
     valid_sel = sel >= 0
     q_hit = valid_sel & sel_alive & answered
     e_hit = valid_sel & ~sel_alive
@@ -664,6 +692,23 @@ def _merge_round(st: LookupState, cfg: SwarmConfig, sel: torch.Tensor,
     return new_st, trace
 
 
+def step_impl(ids: torch.Tensor, alive: torch.Tensor, respond,
+              cfg: SwarmConfig, st: LookupState, *,
+              rnd: int | torch.Tensor | None = None,
+              merge_w: int | None = None, trace: LookupTrace | None = None,
+              done_base: int = 0):
+    """One composed lock-step round with any ``respond``: select α,
+    solicit through ``respond``, fold, merge (K1 on the card, whatever
+    ``merge_impl`` says: only the local round fuses into K2), check the
+    quorum.  With a ``trace`` returns ``(state, trace)``
+    (:func:`_merge_round`).  ``ids`` is unused by the round itself and
+    kept for the JAX signature."""
+    sw = Swarm(ids=ids, tables=None, alive=alive)
+    sel, q_hit, merge_args = round_inputs(sw, cfg, st, respond)
+    return _merge_round(st, cfg, sel, q_hit, merge_args, merge_w=merge_w,
+                        trace=trace, rnd=rnd, done_base=done_base)
+
+
 def lookup_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
                 merge_w: int | None = None, *,
                 rnd: int | torch.Tensor | None = None) -> LookupState:
@@ -673,9 +718,8 @@ def lookup_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
     needed only when the state carries the lifecycle plane."""
     if resolve_merge_impl(cfg, st.idx.device) == "fused-round":
         return _fused_round_step(swarm, cfg, st, rnd=rnd)
-    sel, q_hit, merge_args = round_inputs(swarm, cfg, st)
-    return _merge_round(st, cfg, sel, q_hit, merge_args, merge_w=merge_w,
-                        rnd=rnd)
+    return step_impl(swarm.ids, swarm.alive, _local_respond(swarm, cfg), cfg,
+                     st, merge_w=merge_w, rnd=rnd)
 
 
 def fused_round_inputs(swarm: Swarm, cfg: SwarmConfig, st: LookupState):
@@ -725,9 +769,9 @@ def traced_lookup_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
     """One round with the flight recorder on → ``(state, trace)``.  The
     composed round with K1 under every ``merge_impl`` (the JAX traced
     engine's fallback for ``"pallas-round"``)."""
-    sel, q_hit, merge_args = round_inputs(swarm, cfg, st)
-    return _merge_round(st, cfg, sel, q_hit, merge_args, merge_w=merge_w,
-                        trace=trace, rnd=rnd, done_base=done_base)
+    return step_impl(swarm.ids, swarm.alive, _local_respond(swarm, cfg), cfg,
+                     st, merge_w=merge_w, trace=trace, rnd=rnd,
+                     done_base=done_base)
 
 
 def _sample_origins(generator: torch.Generator, alive: torch.Tensor,
@@ -1138,7 +1182,7 @@ def _count_at(node: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
 
 def chaos_round_inputs(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
                        st: LookupState, strikes: torch.Tensor, rnd: int,
-                       byz_aux=None):
+                       byz_aux=None, respond=None):
     """The first half of an adversarial round, in this order:
 
     1. blacklist eviction: nodes at ``strikes >= strike_limit`` leave
@@ -1159,7 +1203,8 @@ def chaos_round_inputs(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
     ``(st, sel, q_hit, merge_args, outcome)``: the state after the
     eviction, the round merge's inputs ``merge_args`` exactly as
     :func:`round_inputs` gives them, and ``outcome = (succ, dropm,
-    malformed, poison_ct)`` for the strike accounting."""
+    malformed, poison_ct)`` for the strike accounting.  ``respond``
+    defaults to the local one; the sharded chaos engine routes it."""
     n = cfg.n_nodes
     t0 = st.targets[:, 0]
     if faults.defend:
@@ -1175,8 +1220,9 @@ def chaos_round_inputs(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
     valid = sel >= 0
     sel_alive = valid & swarm.alive[safe]
     solicit = torch.where(sel_alive, sel, -1)
-    resp, resp_d0, answered = _respond(swarm, cfg, st.targets, solicit,
-                                       sel_d0)
+    if respond is None:
+        respond = _local_respond(swarm, cfg)
+    resp, resp_d0, answered = respond(st.targets, solicit, sel_d0)
     a = sel.shape[1]
     k2 = resp.shape[1] // a
     if swarm.byzantine is not None:
@@ -1233,16 +1279,20 @@ def chaos_round_inputs(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
 def chaos_step_impl(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
                     st: LookupState, strikes: torch.Tensor, rnd: int,
                     byz_aux=None, trace: LookupTrace | None = None,
-                    done_base: int = 0):
+                    done_base: int = 0, *, respond=None, allreduce=None):
     """One adversarial round: :func:`chaos_round_inputs`, the shared
     round tail (:func:`_merge_round`, K1 on the card), then the strike
     accounting — a clean answer clears the responder's strikes, an
     all-silent round adds one, and every poisoned reply adds one (so
-    one round's events merge in any order).  Returns ``(state,
-    strikes)``, or ``(state, strikes, trace)`` with a trace (its
-    ``poison``, ``strikes`` and ``convictions`` rows filled here)."""
+    one round's events merge in any order).  ``respond`` routes the
+    solicitations (default local); ``allreduce`` (the sharded engine's
+    sum over its ranks) merges the round's ``[3, N]`` strike events
+    mesh-wide before they apply, so every rank holds the same strikes.
+    Returns ``(state, strikes)``, or ``(state, strikes, trace)`` with a
+    trace (its ``poison``, ``strikes`` and ``convictions`` rows filled
+    here)."""
     st, sel, q_hit, merge_args, outcome = chaos_round_inputs(
-        swarm, cfg, faults, st, strikes, rnd, byz_aux)
+        swarm, cfg, faults, st, strikes, rnd, byz_aux, respond)
     succ, dropm, malformed, poison_ct = outcome
     new_st = _merge_round(st, cfg, sel, q_hit, merge_args, trace=trace,
                           rnd=rnd, done_base=done_base)
@@ -1258,6 +1308,9 @@ def chaos_step_impl(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
     succ_ct = _count_at(sel, succ, n)
     drop_ct = _count_at(sel, dropm, n)
     lie_ct = _count_at(sel, malformed, n)
+    if allreduce is not None:
+        succ_ct, drop_ct, lie_ct = allreduce(
+            torch.stack([succ_ct, drop_ct, lie_ct])).unbind(0)
     new_strikes = torch.where(succ_ct > 0, 0,
                               strikes + drop_ct.clamp(max=1)) + lie_ct
     if trace is None:

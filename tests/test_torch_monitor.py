@@ -173,8 +173,13 @@ def test_monitor_sweeps_equal(faults, world):
                                                     et.bucket_counts))
     assert "coverage" not in off.records[-1]
     assert sum(r["lag_count"] for r in et.records) > 0
-    with pytest.raises(NotImplementedError):
-        tm.MonitorEngine(world[2], world[3], mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_sharded_serve.py runs its sweeps):
+    # the engine takes the mesh's device and sweeps at least its width.
+    from opendht_tpu_torch.parallel.mesh import Mesh
+    eng8 = tm.MonitorEngine(world[2], world[3],
+                            mesh=Mesh(0, 8, torch.device("cpu"), "gloo"))
+    assert eng8.device == torch.device("cpu")
+    assert len(eng8.select_buckets()) >= 8
 
 
 def test_health_copies_equal():
