@@ -123,8 +123,8 @@ Phases (any failure exits non-zero and prints no result line):
    cap 512, cache on) on both engines; ``serve_resident`` at ``bench.py
    --mode serve``'s defaults with ``--serve-engine resident`` (2,048
    slots, admit cap 512, 2 rounds a macro step, ring 2,048) on both
-   engines, cache on (4,096 slots) and overloaded (20,000 req/s for 2 s,
-   ``shed``) — conservation, the ring identities, no ring shed, one read
+   engines and overloaded (20,000 req/s for 2 s, ``shed``; the cache-on
+   leg cut for time) — conservation, the ring identities, no ring shed, one read
    and one replay a macro step, non-empty answers, recall@8 on 512
    served keys — one second of each engine under the profiler, and each
    leg beside the burst engine's on the same schedule;
@@ -138,7 +138,7 @@ Phases (any failure exits non-zero and prints no result line):
 17. the index at ``bench.py --mode index``'s defaults on a 1M-node swarm
    of its own (at 10M its store passes the 2^31 flat-index limit):
    8,192 Zipf(1.2) entries, a timed build, 64 scans of span 64 — a
-   verdict pass on the fused round, three timed K1 passes — exact
+   verdict pass on the fused round, one timed K1 pass — exact
    against ``PhtOracle``, with the trie identities; then the soak at
    ``bench.py --mode soak``'s defaults, each arm on its own swarm:
    read-heavy at 10M nodes with and without maintenance (the ledger),
@@ -172,6 +172,31 @@ Phases (any failure exits non-zero and prints no result line):
    recall@8, the rows that rode the init ``all_to_all`` — counted in
    the routed exchange, summed over ranks — = the probed non-hit rows,
    p50 / p99);
+18b. the mesh resident engine, the node-sharded store and the sharded
+   index: ``sharded_slice10_card_vs_cpu`` (after phase
+   18's first line) — 2 gloo ranks on the card and a CPU gloo group on
+   each, at 4,096 nodes: the mesh resident engine's macro steps (cache
+   off, on, expiry) and replay, the node-sharded store's sequence
+   (announce plain / probe / drop, listen, get, the listener sweeps, a
+   ``node_range`` republish with drops, expire), the chunked routes and
+   a ``ShardedDeviceIndex`` — every output equal; after ``sharded_path``
+   one rank over NCCL in this process at 10M: ``sharded_resident_replay``
+   (the main targets through one graph of 48 gated trips, collectives
+   inside, equal to ``sharded_lookup(compact=False)`` and the main path;
+   ``xchg_init_rows`` = L), graph = eager at the serve shape,
+   ``sharded_resident_leg`` ×2 (``--mode serve --sharded --serve-engine
+   resident``'s schedule, cache off and on: conservation, ring shed 0,
+   non-empty answers, recall@8, one read and one replay a macro step,
+   the init rows counted in the exchange = admitted − hits, collectives
+   a macro step) and ``sharded_storage_path`` (routed = local at 65,536
+   nodes; 1,048,576 SHA-1-keyed values, 1 % forged, put and got at
+   cf=2.0; churn 0.25, heal, a probe republish of nodes [0, 131,072), a
+   get); after ``sharded_serve`` 4 gloo ranks on the card:
+   ``sharded_storage_ranks`` (put/get at 1M × 100,000 beside the local
+   engine, ``--mode chaos``'s listener lifecycle, ``--mode repub``'s
+   probe and full sweeps, torn chunked rows, an index of 256 drawn
+   entries with the bench's 64 scans in one batch, and the resident
+   engine eager over gloo on the serve schedule);
 19. the monitor at 10M nodes, last (it kills nodes and heals the tables
    in place): ``bench.py --mode monitor``'s defaults (12 sweeps, period
    4, fresh_ttl 2, stale threshold 0.25, miss limit 2, kill 0.05 a sweep
@@ -188,7 +213,9 @@ spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
 ``resident_vs_burst``, ``chunked_path``, ``index_path``,
 ``soak_leg``, ``soak_ledger``, ``soak_profile``,
 ``sharded_card_vs_cpu``, ``sharded_path``, ``sharded_ranks``,
-``sharded_chaos``, ``sharded_serve``, ``monitor_sweep`` and
+``sharded_chaos``, ``sharded_serve``, ``sharded_slice10_card_vs_cpu``,
+``sharded_resident_replay``, ``sharded_resident_leg``,
+``sharded_storage_path``, ``sharded_storage_ranks``, ``monitor_sweep`` and
 ``monitor_path`` lines, ``elapsed`` lines between phases, a ``kernels``
 JSON line (each row with its
 launches on every path — a graph replay counts the kernels its capture
@@ -1301,7 +1328,7 @@ def phase_storage_full(sw, swarm, cfg_f, card, failures):
     read back, 1,024 listeners and a seq-2 re-announce of their keys, then
     ``churn(0.25)``, a heal and ``republish_from`` over survivors holding
     at most 2,097,152 values.  Returns the storage path's launch
-    counts."""
+    counts and its headline rates (printed beside the sharded store's)."""
     import torch
     from opendht_tpu_torch.models import storage as stg
     from opendht_tpu_torch.models.integrity import (content_ids,
@@ -1460,7 +1487,8 @@ def phase_storage_full(sw, swarm, cfg_f, card, failures):
         failures.append("fused_round was not launched on the storage path")
     del store, churned
     torch.cuda.empty_cache()
-    return launches
+    return launches, {k: out[k] for k in ("puts_per_s", "gets_per_s",
+                                          "hit_rate", "mean_replicas")}
 
 
 # ---------------------------------------------------------------------------
@@ -1870,7 +1898,6 @@ def phase_serve_full(sw, swarm, cfg, targets, origins, res, card, failures):
 
     leg("k1_engine", cfg)
     leg("fused_engine", cfg_f)
-    leg("cache_on", cfg, cache_slots=4096)
     over = sv.poisson_zipf_events(20000.0, 2.0, 4096, 1.1, seed=8)
     rep = leg("overload_shed", cfg, sched=over,
               admission=sv.AdmissionControl(rate=5000, policy="shed"))
@@ -2396,22 +2423,28 @@ def sync_sites(caught):
 
 def profile_resident(sv, swarm, cfg, sched, top: int = 10) -> dict:
     """One second of ``serve_resident`` (2,048 slots, admit cap 512, real
-    clock) under ``torch.profiler``: the device's busy share, kernels a
-    macro step on the device, and the host's launch calls a macro step
-    (graph launches, kernel launches, copies)."""
+    clock) under ``torch.profiler`` (:func:`profile_engine`)."""
+    return profile_engine(sv, sv.ResidentServeEngine(
+        swarm, cfg, slots=2048, admit_cap=512), sched, top)
+
+
+def profile_engine(sv, eng, sched, top: int = 10) -> dict:
+    """``serve_resident`` of ``sched`` on resident engine ``eng`` under
+    ``torch.profiler``: the device's busy share, kernels a macro step on
+    the device, and the host's launch calls a macro step (graph
+    launches, kernel launches, copies)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     ts_, keys, klass = sched
-    eng = sv.ResidentServeEngine(swarm, cfg, slots=2048, admit_cap=512)
     eng.warm_resident()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rep = sv.serve_resident(
-            eng, ts_, keys, torch.Generator(device=swarm.ids.device)
-            .manual_seed(3), klass=klass)
+            eng, ts_, keys, torch.Generator(device=eng.device).manual_seed(3),
+            klass=klass)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels_ms, dev_events, host_calls = {}, 0, collections.Counter()
@@ -2446,8 +2479,10 @@ def phase_resident_full(sw, swarm, cfg, targets, origins, res, card,
     graph = eager at the serve shape on both engines; ``serve_resident``
     at ``bench.py --mode serve``'s defaults with ``--serve-engine
     resident`` (2,048 slots, admit cap 512, 2 rounds a macro step, ring
-    4 × 512) on both engines, cache on (4,096 slots) and an overload leg
-    (20,000 req/s for 2 s, ``shed`` at 5,000 req/s a class); one second
+    4 × 512) on both engines and an overload leg (20,000 req/s for 2 s,
+    ``shed`` at 5,000 req/s a class; the cache-on leg was cut to keep
+    the script in its time: the sharded resident path's cache-on leg
+    holds a captured cache); one second
     of each engine under the profiler; each leg beside the burst
     engine's on the same schedule.  Returns the path's launch counts."""
     import numpy as np
@@ -2609,7 +2644,6 @@ def phase_resident_full(sw, swarm, cfg, targets, origins, res, card,
 
     leg("k1_engine", cfg)
     leg("fused_engine", cfg_f)
-    leg("cache_on", cfg, cache_slots=4096)
     over = sv.poisson_zipf_events(20000.0, 2.0, 4096, 1.1, seed=8)
     rep = leg("overload_shed", cfg, sched=over,
               admission=sv.AdmissionControl(rate=5000, policy="shed"))
@@ -2636,8 +2670,8 @@ def phase_resident_full(sw, swarm, cfg, targets, origins, res, card,
                                               "card": card}))
     keys_cmp = ("sustained_rps", "p50_latency_s", "p95_latency_s",
                 "p99_latency_s", "elapsed_s", "rounds")
-    for name in ("k1_engine", "fused_engine", "cache_on", "overload_shed"):
-        b, r = burst_legs.get(name, {}), legs[name]
+    for name, r in legs.items():
+        b = burst_legs.get(name, {})
         row = {"leg": name,
                "burst": {k: b.get(k) for k in keys_cmp + ("bursts",)},
                "resident": {k: r.get(k) for k in keys_cmp},
@@ -2753,6 +2787,7 @@ INDEX_NODES = 1_000_000     # bench.py --mode index: --nodes
 INDEX_ENTRIES = 8192        # --entries
 INDEX_RANKS = 4096          # --key-pool
 INDEX_SCANS = 64            # --scans, each of --scan-span 64
+INDEX_TIMED_PASSES = 1      # timed K1 scan passes
 
 
 def cpu_origins(seed, alive, m):
@@ -3027,8 +3062,8 @@ def phase_index_full(card, failures):
     """The index at ``bench.py --mode index``'s defaults on a swarm of
     its own: 8,192 entries Zipf(1.2) over 4,096 ranks (at most 16 a
     key), one timed build on the K1 engine, the sequential oracle, 64
-    scans of span 64 — a verdict pass on the fused round, three timed
-    passes on K1 (equal to it) — and the trie read back from the store, at
+    scans of span 64 — a verdict pass on the fused round, one timed pass
+    on K1 (equal to it) — and the trie read back from the store, at
     ``INDEX_NODES`` (1M, the bench's default: at 10M the store's
     10M × 24 × 9 payload words pass the 2^31 flat-index limit both
     packages' ``validate_store_geometry`` holds).  Exact recall, the
@@ -3076,7 +3111,7 @@ def phase_index_full(card, failures):
     matched = sum(len(set(res[i]) & want[i]) for i in range(INDEX_SCANS))
     extras = sum(len(set(res[i]) - want[i]) for i in range(INDEX_SCANS))
     walls, syncs, batches = [], [], []
-    for _ in range(3):
+    for _ in range(INDEX_TIMED_PASSES):
         b0 = x.stats["probe_batches"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4024,6 +4059,1079 @@ def phase_sharded_serve(card, failures):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the mesh resident engine, the node-sharded store and the sharded
+# index
+# ---------------------------------------------------------------------------
+
+MESH_CMP_NODES = 4096
+STORE_RANK_NODES = 65_536           # bench.py --mode chaos / repub's nodes
+STORE_RANK_PUTS = 100_000           # bench.py --puts (the sharded leg)
+REPUB_RANGE = 131_072               # the 10M republish's node range (a cut)
+STORE_RANK_INDEX_DRAWN = 256        # the ranks' index entries drawn (a cut)
+
+
+def _whole(gen, *shape, hi=2**32):
+    import torch
+    return torch.randint(0, hi, shape, generator=gen)
+
+
+def mesh_cmp_rank(mesh):
+    """One rank of the mesh card-vs-CPU check at 4,096 nodes: every
+    call runs on this rank's card group and on a second gloo group of CPU
+    tensors, from the same inputs (drawn on the CPU, the whole batch on
+    every rank, each rank taking its rows); returns ``{call: equal}``."""
+    import torch
+    import torch.distributed as dist
+    from opendht_tpu_torch.models import index as ix
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.models.integrity import content_ids
+    from opendht_tpu_torch.parallel import mesh as pm
+    from opendht_tpu_torch.parallel import sharded_index as si
+    from opendht_tpu_torch.parallel import sharded_storage as ss
+
+    cpu = pm.Mesh(mesh.rank, mesh.size, torch.device("cpu"), "gloo",
+                  group=dist.new_group(backend="gloo"))
+    cfg = sw.SwarmConfig.for_nodes(MESH_CMP_NODES, device="cpu")
+    gen = torch.Generator().manual_seed(21)
+    full = sw.churn(sw.build_swarm(cfg, gen, device="cpu"), gen, 0.2, cfg)
+    churned = sw.churn(full, gen, 0.25, cfg)
+    q = cfg.quorum
+
+    def shard(m, s=full):
+        s = s.to(m.device)
+        return s._replace(tables=pm.shard_rows(m, s.tables).clone())
+
+    def rows(m, x):
+        return None if x is None else pm.shard_rows(m, x)
+
+    # -- the resident engine ------------------------------------------
+    a, slots = 64, 256
+    pool = _whole(gen, 32, 5)
+    plan = [(pool[torch.randint(0, 32, (a,), generator=gen)],
+             torch.arange(s * a, (s + 1) * a, dtype=torch.int32),
+             torch.arange(a, dtype=torch.int32) % 2,
+             sw._sample_origins(gen, full.alive, a), n_new)
+            for s, n_new in enumerate([a, a, 40, 0, a, 0])]
+    l_rep = 512
+    tg_rep = _whole(gen, l_rep, 5)
+    og_rep = sw._sample_origins(gen, full.alive, l_rep)
+
+    def resident(m, form):
+        c = cfg._replace(max_steps=2) if form == "expire" else cfg
+        eng = sv.ShardedResidentServeEngine(
+            shard(m), c, slots, m, admit_cap=a, ring_slots=4 * a,
+            cache_slots=slots if form == "cache_on" else 0)
+        return [drive_macro(eng, plan), eng.init_shipped.cpu()]
+
+    def replay(m):
+        s = shard(m)
+        eng = sv.ShardedResidentServeEngine(s, cfg, l_rep, m, admit_cap=l_rep,
+                                            ring_slots=2 * l_rep)
+        r, st, o = sv.resident_closed_loop_replay(s, cfg, tg_rep, engine=eng,
+                                                  origins=og_rep)
+        return [list(r), list(st), list(o)]
+
+    # -- the store: announce / get / listeners / republish / expire ----
+    scfg = stg.StoreConfig(slots=8, listen_slots=2, max_listeners=256,
+                           payload_words=4, verify=True, listen_ttl=100)
+    p = 512
+    pay = _whole(gen, p, 4)
+    keys = content_ids(pay)
+    keys[3] ^= 1                                   # forged: the SHA-1 gate
+    vals = _whole(gen, p)
+    pay2 = _whole(gen, p, 4)
+    keys2 = content_ids(pay2)
+    og = [sw._sample_origins(gen, full.alive, p) for _ in range(6)]
+    keep = torch.rand((p, q), generator=gen) >= 0.3
+    regs = torch.arange(p, dtype=torch.int32) % 256
+    regs[p // 2:] = -1
+    cn = 512                                     # republish chunk: nodes
+    rep_og = [sw._sample_origins(gen, churned.alive, cn * scfg.slots)
+              for _ in range(4)]
+    rep_keep = [torch.rand((cn * scfg.slots, q), generator=gen) >= 0.2
+                for _ in range(4)]
+    active = torch.zeros(256, dtype=torch.bool)
+    active[:64] = True
+
+    def storage(m):
+        s = shard(m)
+        store = ss.sharded_empty_store(cfg.n_nodes, scfg, m)
+        out = {}
+
+        def ann(name, k, v, sq, now, oi, **kw):
+            nonlocal store
+            store, r = ss.sharded_announce(
+                s, cfg, store, scfg, rows(m, k), rows(m, v), rows(m, sq),
+                now, m, origins=rows(m, og[oi]),
+                drop_keep=rows(m, kw.pop("keep", None)), **kw)
+            out[name] = [list(r[:3]), list(r.trace), list(store)]
+
+        ann("announce plain", keys, vals, torch.ones(p, dtype=torch.int64),
+            10, 0, payloads=rows(m, pay))
+        ann("announce probe", keys, vals,
+            torch.where(torch.arange(p) < 128, 2, 1), 20, 1,
+            payloads=rows(m, pay), probe=True, full_capacity_factor=0.25)
+        ann("announce drop", keys2, vals, torch.ones(p, dtype=torch.int64),
+            30, 2, payloads=rows(m, pay2), capacity_factor=2.0,
+            drop_frac=0.3, keep=keep)
+        store, done = ss.sharded_listen_at(s, cfg, store, scfg, rows(m, keys2),
+                                           rows(m, regs), m, now=35,
+                                           origins=rows(m, og[3]))
+        out["listen"] = [done, list(store)]
+        ann("announce delivering", keys2, vals + 1,
+            torch.full((p,), 2, dtype=torch.int64), 40, 4,
+            payloads=rows(m, pay2))
+        g = ss.sharded_get(s, cfg, store, scfg, rows(m, keys), m,
+                           origins=rows(m, og[5]))
+        out["get verify"] = list(g)
+        store = ss.sharded_ack_listeners(store, torch.arange(32))
+        store = ss.sharded_refresh_listeners(store, scfg, active, 45)
+        store = ss.sharded_expire_listeners(store, scfg, 140)
+        store = ss.sharded_cancel_listen(store, scfg, torch.arange(40, 48))
+        out["listener sweeps (ack, refresh, expire, cancel)"] = list(store)
+        s2 = shard(m, churned)
+        store, r = ss.sharded_republish(
+            s2, cfg, store, scfg, 50, m, chunk=cn * scfg.slots,
+            node_range=(1024, 3072), drop_frac=0.2,
+            origins_of=lambda i: rows(m, rep_og[i]),
+            drop_keep_of=lambda i: rows(m, rep_keep[i]))
+        out["republish node_range drop"] = [list(r[:3]), list(r.trace),
+                                            list(store)]
+        out["expire"] = list(ss.sharded_expire(store, scfg, 70))
+        return out
+
+    # -- chunked values ------------------------------------------------
+    ccfg = stg.StoreConfig(slots=8, listen_slots=4, max_listeners=256,
+                           payload_words=2)
+    pc, parts = 256, 3
+    ckeys = _whole(gen, pc, 5)
+    cpay = _whole(gen, pc, parts, 2)
+    clen = torch.randint(0, parts * 8 + 1, (pc,), generator=gen)
+    clen[:16] = parts * 8
+    torn = torch.zeros((pc, parts), dtype=torch.bool)
+    torn[:16:2, 1] = True
+    cog = [sw._sample_origins(gen, full.alive, pc) for _ in range(4)]
+    ckeep = {j: torch.rand((pc, q), generator=gen) >= 0.2
+             for j in range(parts)}
+    cregs = torch.arange(pc, dtype=torch.int32) % 64
+    cregs[64:] = -1
+
+    def chunked(m):
+        s = shard(m)
+        store = ss.sharded_empty_store(cfg.n_nodes, ccfg, m)
+        out = {}
+        store, r = ss.sharded_announce_chunked(
+            s, cfg, store, ccfg, rows(m, ckeys), rows(m, _whole(
+                torch.Generator().manual_seed(5), pc)),
+            rows(m, torch.ones(pc, dtype=torch.int64)), 5, m,
+            rows(m, cpay), rows(m, clen), drop_frac=0.2,
+            part_drop_mask=rows(m, torn), origins=rows(m, cog[0]),
+            drop_keep_of=lambda j: rows(m, ckeep[j]))
+        out["announce torn"] = [list(r[:3]), list(r.trace), list(store)]
+        out["get"] = list(ss.sharded_get_chunked(
+            s, cfg, store, ccfg, rows(m, ckeys), m, parts,
+            origins=rows(m, cog[1])))
+        store, done = ss.sharded_listen_chunked(
+            s, cfg, store, ccfg, rows(m, ckeys), rows(m, cregs), m, parts,
+            now=6, origins=rows(m, cog[2]))
+        out["listen"] = [done, list(store)]
+        store, r = ss.sharded_announce_chunked(
+            s, cfg, store, ccfg, rows(m, ckeys), rows(m, _whole(
+                torch.Generator().manual_seed(6), pc)),
+            rows(m, torch.full((pc,), 2, dtype=torch.int64)), 7, m,
+            rows(m, cpay), rows(m, clen), origins=rows(m, cog[3]))
+        out["collect"] = list(ss.sharded_collect_chunked(
+            store, ccfg, torch.arange(64), parts))
+        return out
+
+    # -- the index -----------------------------------------------------
+    spec = ix.IndexSpec.from_key_spec("conf", {"id": 4})
+    iscfg = stg.StoreConfig(slots=24, listen_slots=1, max_listeners=64,
+                            payload_words=spec.payload_words)
+    raw = [bytes([x, y]) for x in b"ab" for y in b"abcdefgh"]
+    ikeys = [{"id": k} for k in raw]
+    ehash = _whole(gen, len(raw), 5).numpy().astype("uint32")
+    evid = torch.arange(len(raw)).numpy().astype("uint32")
+
+    def index(m):
+        def draws(op, n):
+            return sw._sample_origins(torch.Generator().manual_seed(900 + op),
+                                      full.alive, n)
+        x = si.ShardedDeviceIndex(
+            shard(m), cfg, ss.sharded_empty_store(cfg.n_nodes, iscfg, m),
+            iscfg, spec, m, draws=draws)
+        ins = x.insert_batch(ikeys, ehash, evid)
+        lk = x.lookup_batch(ikeys[:4])
+        lo = x.linearize([{"id": b"\x00"}, {"id": b"ae"}])
+        hi = x.linearize([{"id": b"ac"}, {"id": b"bb"}])
+        scan = x.range_query(lo, hi)
+        return [ins, lk[0], lk[1], scan[0], scan[1], x.trie_snapshot(),
+                list(x.store), dict(x.stats)]
+
+    calls = {
+        "resident macro steps, cache off": lambda m: resident(m, "off"),
+        "resident macro steps, cache on": lambda m: resident(m, "cache_on"),
+        "resident macro steps, expiry (max_steps 2)":
+            lambda m: resident(m, "expire"),
+        "resident_closed_loop_replay": replay,
+        "storage sequence": storage,
+        "chunked sequence": chunked,
+        "sharded index build, walk, scan": index,
+    }
+    out, walls = {}, {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        c = fn(cpu)
+        g = fn(mesh)
+        walls[name] = time.perf_counter() - t0
+        if isinstance(c, dict):
+            for k in c:
+                out[f"{name}: {k}"] = same_tensors(c[k], g[k])
+        else:
+            out[name] = same_tensors(c, g)
+    out["transport"] = mesh.transport
+    out["walls_s"] = walls
+    return out
+
+
+def phase_mesh_card_vs_cpu(card, failures) -> None:
+    """The mesh resident, store and index calls card vs CPU at 4,096
+    nodes over 2 gloo ranks
+    sharing the card (:func:`mesh_cmp_rank`): equal on both ranks."""
+    from opendht_tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    outs = pm.spawn(mesh_cmp_rank, 2, backend="gloo", device="cuda:0",
+                    timeout=RANK_TIMEOUT, limit=600.0)
+    transport = outs[0].pop("transport")
+    walls = outs[0].pop("walls_s")
+    for o in outs[1:]:
+        o.pop("transport")
+        o.pop("walls_s")
+    eq = {k: all(o[k] for o in outs) for k in outs[0]}
+    log("sharded_slice10_card_vs_cpu " + json.dumps({
+        "n_nodes": MESH_CMP_NODES, "ranks": 2, "transport": transport,
+        "equal": eq, "all_equal": all(eq.values()),
+        "call_walls_s_rank0": walls,
+        "wall_s": time.perf_counter() - t0, "card": card}))
+    for k, v in eq.items():
+        if not v:
+            failures.append(f"mesh resident / store card vs CPU differs: {k}")
+
+
+
+def sharded_resident_path(sw, swarm, cfg, targets, origins, res, mesh, card,
+                          failures):
+    """The mesh resident engine on one rank over NCCL at the main path's
+    10M nodes: the replay of the main targets (one graph of 48 gated
+    trips, collectives inside) against ``sharded_lookup(compact=False)``
+    and the main path's result; graph = eager at the serve shape;
+    ``bench.py --mode serve --sharded --serve-engine resident``'s
+    schedule cache off and on (4,096 slots).  Returns the kernel
+    launches of the second replay and the two serve legs alone (the
+    capture, ``sharded_lookup``, the eager check and the profiled second
+    run outside that count)."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.parallel import sharded as ps
+
+    dev = swarm.ids.device
+    l = targets.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = collections.Counter()   # the replay and the two legs alone
+
+    def window(run):
+        """``run()`` with the kernel and collective counts from 0; its
+        kernel launches join ``launches``.  Returns ``(result, kernel
+        launches, collectives)``."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        mesh.reset_counters()
+        r = run()
+        torch.cuda.synchronize()
+        ln = dict(kernels.LAUNCHES)
+        launches.update(ln)
+        return r, ln, dict(mesh.calls)
+
+    eng = sv.ShardedResidentServeEngine(swarm, cfg, l, mesh, admit_cap=l,
+                                        ring_slots=2 * l)
+    walls = []
+    for i in range(2):              # capture + replay, then a replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = (lambda: sv.resident_closed_loop_replay(
+            swarm, cfg, targets, origins=origins, engine=eng))
+        if i:
+            (rr, _st, out), replay_ln, replay_calls = window(run)
+        else:
+            rr, _st, out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    graph = eng.graphs.get((False, cfg.max_steps, False))
+    del _st
+    look = ps.sharded_lookup(swarm, cfg, targets, mesh, origins=origins,
+                             capacity_factor=2.0, compact=False)
+    same_lookup = all(torch.equal(x, y) for x, y in zip(rr, look))
+    same_local = all(torch.equal(x, y) for x, y in zip(rr, res))
+    replay = {"n_lookups": l, "graph": eng.graph,
+              "transport": mesh.transport,
+              "capture_and_first_replay_s": walls[0],
+              "replay_wall_s": walls[1], "lookups_per_s": l / walls[1],
+              "equals_sharded_lookup_uncompacted": same_lookup,
+              "equals_main_path": same_local,
+              "rounds_run": int(out.rounds_run),
+              "gated_trips": cfg.max_steps,
+              "xchg_init_rows": int(out.xchg_init_rows),
+              "xchg_round_rows": int(out.xchg_round_rows),
+              "graph_launches": graph and graph["launches"],
+              "graph_collectives": graph and graph["collectives"],
+              "launches_second_replay": replay_ln,
+              "collectives_second_replay": replay_calls,
+              "replays": eng.replays, "readbacks": eng.readbacks,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    log("sharded_resident_replay " + json.dumps({**replay, "card": card}))
+    if graph is None or not eng.graph:
+        failures.append("the sharded resident replay ran no graph")
+    if not (same_lookup and same_local):
+        failures.append(f"sharded resident replay differs: from "
+                        f"sharded_lookup {not same_lookup}, from the main "
+                        f"path {not same_local}")
+    if replay["xchg_init_rows"] != l:
+        failures.append(f"sharded resident replay: xchg_init_rows "
+                        f"{replay['xchg_init_rows']} != {l}")
+    if replay_ln["merge_round"] <= 0:
+        failures.append("the sharded resident replay launched no K1")
+    del rr, out, look, eng, graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    ts_, keys, klass = sv.poisson_zipf_events(2000.0, 5.0, 4096, 1.1, seed=7)
+    gen = torch.Generator().manual_seed(41)
+    plan = [(torch.from_numpy(keys[np.arange(s * 512, (s + 1) * 512)
+                                   % len(keys)].astype(np.int64)),
+             torch.arange(s * 512, (s + 1) * 512, dtype=torch.int32),
+             torch.zeros(512, dtype=torch.int32),
+             torch.randint(0, N_NODES, (512,), generator=gen,
+                           dtype=torch.int32), n_new)
+            for s, n_new in enumerate([512, 512, 300, 0, 512, 0])]
+    eng = sv.ShardedResidentServeEngine(swarm, cfg, 2048, mesh,
+                                        admit_cap=512, cache_slots=4096)
+    graph_seq = drive_macro(eng, plan)
+    e_st, e_rings = eng.empty(), eng.empty_rings()
+    e_cache = sv.empty_result_cache(cfg, 4096)
+    eager_seq = []
+    for s, (k, r, cl, og, n_new) in enumerate(plan):
+        e_st, e_rings, e_cache, o = ps._sharded_resident_step(
+            mesh, swarm, cfg, e_st, e_rings, e_cache, k.to(dev), r.to(dev),
+            cl.to(dev), og.to(dev), n_new, 2 * s, 2.0, 2)
+        eager_seq.append((sv.ResidentOut(*[x.cpu().numpy() for x in o]),
+                          *snapshot(e_st, e_rings, e_cache)))
+    same = same_tensors(graph_seq, eager_seq)
+    log(f"sharded resident graph vs eager at the serve shape (NCCL, 1 rank, "
+        f"2,048 slots, admit cap 512, cache 4,096, 6 macro steps): "
+        f"{'equal' if same else 'DIFFERENT'} (every output, state, ring and "
+        f"cache; completed {sum(int(x[0].comp.sum()) for x in graph_seq)}, "
+        f"hits {sum(int(x[0].hits) for x in graph_seq)})")
+    if not same:
+        failures.append("the sharded resident graph differs from the eager "
+                        "body")
+    del eng, graph_seq, eager_seq, e_st, e_rings, e_cache
+
+    for name, cache_slots in (("cache_off", 0), ("cache_on", 4096)):
+        eng = sv.ShardedResidentServeEngine(swarm, cfg, 2048, mesh,
+                                            admit_cap=512,
+                                            cache_slots=cache_slots)
+        eng.warm_resident()
+        shipped0 = int(eng.init_shipped)
+        g = torch.Generator(device=dev).manual_seed(3)
+
+        def leg():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    rep = sv.serve_resident(eng, ts_, keys, g, klass=klass,
+                                            duration=float(ts_[-1]) + 1e-9)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return rep, caught
+
+        (rep, caught), leg_ln, leg_calls = window(leg)
+        syncs, sites = sync_sites(caught)
+        r = rep["resident"]
+        graph = eng.graphs.get((bool(cache_slots), 2, True))
+        shipped = int(eng.init_shipped) - shipped0
+        iters = max(1, r["iterations"])
+        out = {"leg": name, "cache_slots": cache_slots, "graph": eng.graph,
+               "transport": mesh.transport, "requests": len(ts_),
+               **serve_summary(rep), "macro_steps": r["iterations"],
+               "device_rounds": r["device_rounds"],
+               "ring_shed": r["ring_shed"],
+               "host_orchestration_frac": r["host_orchestration_frac"],
+               "exchange": r["exchange"], "init_rows_shipped": shipped,
+               "readbacks": eng.readbacks, "replays": eng.replays,
+               "kernel_launches_per_macro_step": graph and graph["launches"],
+               "collectives_per_macro_step": graph and graph["collectives"],
+               "launches": leg_ln, "collectives_counted": leg_calls,
+               "collectives_counted_per_macro_step": {
+                   k: v / iters for k, v in leg_calls.items()},
+               "other_host_syncs": len(syncs), "host_sync_sites": sites,
+               "layer_walls_s": rep["layer_walls_s"]}
+        out["found_set_empty"] = int((rep["found"] < 0).all(1).sum())
+        if rep["completed"]:
+            first = np.argsort(rep["request"], kind="stable")[:N_RECALL]
+            found = torch.from_numpy(rep["found"][first]).to(dev)
+            tk = torch.from_numpy(keys[rep["request"][first]].astype(
+                np.int64)).to(dev)
+            out["recall_at_8"] = recall_at(sw.true_closest(swarm, cfg, tk),
+                                           found)
+        ring_ok = r["ring_enqueued"] == (rep["admitted"]
+                                         + r["ring_backlog_final"]
+                                         + r["ring_shed"])
+        if not (conserved(rep) and ring_ok and r["ring_shed"] == 0
+                and out["found_set_empty"] == 0
+                and out.get("recall_at_8", 0) >= 0.99):
+            failures.append(f"sharded resident leg {name}: conservation, a "
+                            f"ring identity or shed, an empty answer or "
+                            f"recall@8 {out.get('recall_at_8')}")
+        if graph is None or eng.readbacks != r["iterations"] \
+                or eng.replays != r["iterations"] or len(syncs) > 4:
+            failures.append(f"sharded resident leg {name}: {eng.readbacks} "
+                            f"reads, {eng.replays} replays for "
+                            f"{r['iterations']} macro steps, syncs {sites}")
+        x = r["exchange"]
+        if x["rows_init"] != rep["admitted"] - rep["cache_hits"] \
+                or shipped != x["rows_init"]:
+            failures.append(f"sharded resident leg {name}: init rows "
+                            f"{x['rows_init']}, shipped {shipped}, admitted "
+                            f"- hits {rep['admitted'] - rep['cache_hits']}")
+        if cache_slots and rep["cache_hits"] <= 0:
+            failures.append("sharded resident cache-on leg: no hit")
+        if leg_ln["merge_round"] <= 0:
+            failures.append(f"sharded resident leg {name} launched no K1")
+        if name == "cache_off":      # one second more, under the profiler
+            short = sv.poisson_zipf_events(2000.0, 1.0, 4096, 1.1, seed=10)
+            out["profile"] = profile_engine(sv, eng, short)
+        log("sharded_resident_leg " + json.dumps({**out, "card": card}))
+        del eng, graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in replay_ln}
+
+
+def sharded_storage_path(sw, swarm, cfg, mesh, card, failures, local):
+    """The node-sharded store on one rank over NCCL at 10M nodes: the
+    identity routed = local at 65,536 nodes (announce and get, cf=2.0 =
+    uncapped at one rank), then ``bench.py --mode sharded``'s put/get leg
+    at the storage cell's ``StoreConfig`` and 1,048,576 SHA-1-keyed
+    values (1 % forged), cf=2.0; churn 0.25, a heal, a probe republish
+    over nodes [0, 131,072) and a get.  Returns the launches."""
+    import torch
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.models.integrity import content_ids, forge_payloads
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.parallel import sharded as ps
+    from opendht_tpu_torch.parallel import sharded_storage as ss
+
+    dev = swarm.ids.device
+    scfg = stg.StoreConfig(slots=16, listen_slots=1, max_listeners=1 << 10,
+                           payload_words=8, verify=True)
+    # -- the identity at 65,536 nodes --------------------------------
+    small = sw.SwarmConfig.for_nodes(STORE_RANK_NODES)
+    gs = torch.Generator(device=dev).manual_seed(60)
+    sm = sw.build_swarm(small, gs)
+    pl = torch.randint(0, 2**32, (16384, 8), generator=gs, device=dev)
+    k16 = content_ids(pl)
+    v16 = torch.arange(1, 16385, device=dev)
+    o_put = sw._sample_origins(gs, sm.alive, 16384)
+    o_get = sw._sample_origins(gs, sm.alive, 16384)
+    s_r, rep_r = ss.sharded_announce(
+        sm, small, ss.sharded_empty_store(STORE_RANK_NODES, scfg, mesh), scfg,
+        k16, v16, torch.ones_like(v16), 1, mesh, capacity_factor=2.0,
+        payloads=pl, origins=o_put)
+    s_l, rep_l = stg.announce(sm, small, stg.empty_store(STORE_RANK_NODES,
+                                                         scfg),
+                              scfg, k16, v16, torch.ones_like(v16), 1,
+                              payloads=pl, origins=o_put)
+    g_r = ss.sharded_get(sm, small, s_r, scfg, k16, mesh, capacity_factor=2.0,
+                         origins=o_get)
+    g_l = stg.get_values(sm, small, s_l, scfg, k16, origins=o_get)
+    identity = {"store": same_tensors(list(s_r), list(s_l)),
+                "announce_report": same_tensors(
+                    list(rep_r[:3]) + list(rep_r.trace),
+                    list(rep_l[:3]) + list(rep_l.trace)),
+                "get": same_tensors(list(g_r), list(g_l))}
+    del sm, s_r, s_l, rep_r, rep_l, g_r, g_l, pl
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if not all(identity.values()):
+        failures.append(f"sharded storage at one rank differs from the "
+                        f"local store: {identity}")
+
+    # -- 10M nodes ----------------------------------------------------
+    n = swarm.ids.shape[0]
+    p = N_LOOKUPS
+    gen = torch.Generator(device=dev).manual_seed(61)
+    pl = torch.randint(0, 2**32, (p, 8), generator=gen, device=dev)
+    keys = content_ids(pl)
+    put_pl, forged = forge_payloads(pl, flip_frac=0.01, generator=gen)
+    vals = torch.arange(1, p + 1, device=dev)
+    put_origins = sw._sample_origins(gen, swarm.alive, p)
+    found = ps.sharded_lookup(swarm, cfg, keys, mesh, origins=put_origins,
+                              capacity_factor=2.0).found
+    live = (found >= 0) & swarm.alive[found.clamp(min=0).long()]
+    want_rejects = int(live[forged].sum())
+    del found, live
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    mesh.reset_counters()
+    store = ss.sharded_empty_store(n, scfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store, rep = ss.sharded_announce(swarm, cfg, store, scfg, keys, vals,
+                                     torch.ones_like(vals), 1, mesh,
+                                     capacity_factor=2.0, payloads=put_pl,
+                                     origins=put_origins)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    tr = rep.trace.to_dict()
+    get_origins = sw._sample_origins(gen, swarm.alive, p)
+    t0 = time.perf_counter()
+    g = ss.sharded_get(swarm, cfg, store, scfg, keys, mesh,
+                       capacity_factor=2.0, origins=get_origins)
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    honest = ~forged
+    bytes_ok = bool((g.payload[g.hit] == pl[g.hit]).all()
+                    and (g.val[g.hit] == vals[g.hit]).all())
+    conserved_tr = (tr["requests"] == tr["accepts_update"] + tr["accepts_new"]
+                    + tr["rejects"] + tr["integrity_rejects"])
+    out = {"n_nodes": n, "n_values": p, "forged": int(forged.sum()),
+           "ranks": 1, "transport": mesh.transport, "capacity_factor": 2.0,
+           "identity_at_65536_nodes": identity,
+           "puts_per_s": p / put_s, "put_wall_s": put_s,
+           "gets_per_s": p / get_s, "get_wall_s": get_s,
+           "hit_rate": float(g.hit[honest].float().mean()),
+           "forged_hits": int(g.hit[forged].sum()),
+           "mean_replicas": float(rep.replicas[honest].float().mean()),
+           "put_done_frac": float(rep.done.float().mean()),
+           "bytes_intact": bytes_ok, "trace": tr,
+           "trace_conserved": conserved_tr,
+           "forged_requests_at_live_replicas": want_rejects,
+           "wire_words_announce": ss.storage_wire_words(cfg, scfg, p, 1, 2.0),
+           "local_storage_path_this_run": local}
+    if not bytes_ok or out["forged_hits"]:
+        failures.append("sharded storage: a hit's bytes differ from the put, "
+                        "or a forged key was read back")
+    if tr["integrity_rejects"] != want_rejects or not conserved_tr:
+        failures.append(f"sharded storage: integrity_rejects "
+                        f"{tr['integrity_rejects']} != {want_rejects}, or "
+                        f"the trace is not conserved")
+    if out["hit_rate"] < 0.99:
+        failures.append(f"sharded storage: hit rate {out['hit_rate']}")
+    del g, rep
+
+    churned = sw.churn(swarm._replace(tables=swarm.tables.clone()), gen,
+                       0.25, cfg)
+    sw.heal_swarm(churned, cfg, gen)
+    n_honest = int(honest.sum())
+    sample = torch.nonzero(honest).squeeze(1)[:65536]
+
+    def replication():
+        copies = int((store.used & churned.alive[:, None]).sum())
+        g = ss.sharded_get(churned, cfg, store, scfg, keys[sample], mesh,
+                           capacity_factor=2.0,
+                           origins=sw._sample_origins(gen, churned.alive,
+                                                      sample.shape[0]))
+        ok = bool((g.payload[g.hit] == pl[sample][g.hit]).all())
+        return {"live_copies_per_value": copies / n_honest,
+                "sample_hit_rate": float(g.hit.float().mean()),
+                "sample_bytes_intact": ok}
+
+    out["before_republish"] = replication()
+    fcf = 0.7                          # bench.py --mode repub: 2·kill + 0.2
+    rows = REPUB_RANGE * scfg.slots
+    chunk = 262_144
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store, rep3 = ss.sharded_republish(
+        churned, cfg, store, scfg, 4, mesh, capacity_factor=2.0, probe=True,
+        full_capacity_factor=fcf, chunk=chunk, node_range=(0, REPUB_RANGE),
+        origins_of=lambda i: sw._sample_origins(gen, churned.alive, chunk))
+    torch.cuda.synchronize()
+    rep_s = time.perf_counter() - t0
+    out["republish"] = {
+        "node_range": [0, REPUB_RANGE], "slot_rows": rows,
+        "chunks": rows // chunk, "wall_s": rep_s,
+        "slot_rows_per_s": rows / rep_s, "probe": True,
+        "full_capacity_factor": fcf, "trace": rep3.trace.to_dict(),
+        "wire_words_per_chunk": ss.storage_wire_words(
+            cfg, scfg, chunk, 1, 2.0, probe=True, full_capacity_factor=fcf),
+        "wire_words_per_chunk_unprobed": ss.storage_wire_words(
+            cfg, scfg, chunk, 1, 2.0),
+        "replicas_mean": float(rep3.replicas.float().sum() / max(
+            1, int((rep3.replicas > 0).sum())))}
+    out["after_republish"] = replication()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    out["launches"] = launches
+    out["collectives"] = dict(mesh.calls)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["store_bytes"] = store_bytes(n, scfg)
+    out["card"] = card
+    log("sharded_storage_path " + json.dumps(out))
+    for k in ("before_republish", "after_republish"):
+        if not out[k]["sample_bytes_intact"]:
+            failures.append(f"sharded storage {k}: a hit's bytes differ")
+    if (out["after_republish"]["live_copies_per_value"]
+            <= out["before_republish"]["live_copies_per_value"]):
+        failures.append("sharded republish did not raise the replication")
+    if launches["merge_round"] <= 0:
+        failures.append("K1 was not launched on the sharded storage path")
+    del store, churned, pl, keys, put_pl
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sharded_resident_storage_paths(sw, swarm, cfg, targets, origins, res, card,
+                                failures, local):
+    """The mesh resident engine and the node-sharded store at full width,
+    one rank over NCCL in this process.  Returns their launch counts."""
+    import tempfile
+    from opendht_tpu_torch.parallel import mesh as pm
+    store = tempfile.mkdtemp(prefix="mesh-")
+    mesh = pm.make_mesh(1, 0, backend="nccl", device=swarm.ids.device,
+                        init_method="file://" + os.path.join(store, "s"),
+                        timeout=RANK_TIMEOUT)
+    try:
+        lr = sharded_resident_path(sw, swarm, cfg, targets, origins, res,
+                                   mesh, card, failures)
+        ls = sharded_storage_path(sw, swarm, cfg, mesh, card, failures, local)
+        return lr, ls
+    finally:
+        mesh.close()
+
+
+def storage_ranks_rank(mesh):
+    """One of 4 ranks sharing the card: the node-sharded store at the
+    bench's sizes — ``--mode sharded``'s put/get leg (1M nodes, 100,000
+    puts, cf=2.0) beside the local engine; ``--mode chaos``'s listener
+    lifecycle, ``--mode repub``'s probe and full republish, chunked
+    values with torn rows and a ``ShardedDeviceIndex`` at 65,536 nodes;
+    the resident engine on ``--mode serve``'s schedule (eager runner)."""
+    import numpy as np
+    import torch
+    from opendht_tpu_torch.models import index as ix
+    from opendht_tpu_torch.models import serve as sv
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.parallel import mesh as pm
+    from opendht_tpu_torch.parallel import sharded_index as si
+    from opendht_tpu_torch.parallel import sharded_storage as ss
+
+    dev, d = mesh.device, mesh.size
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+    out = {}
+    storage_ln = collections.Counter()   # the routed storage ops alone
+    mesh.reset_counters()
+
+    def rows(x):
+        return pm.shard_rows(mesh, x.to(dev))
+
+    def mean_all(x):
+        return float(pm.gather_rows(mesh, x.reshape(-1)).float().mean())
+
+    # -- put / get at 1M nodes ------------------------------------------
+    full, shard, cfg = _rank_swarm(mesh, SHARDED_RANK_NODES, 0)
+    p = STORE_RANK_PUTS
+    scfg = stg.StoreConfig(slots=16, listen_slots=4, max_listeners=1 << 10)
+    g = torch.Generator().manual_seed(4)
+    keys = torch.randint(0, 2**32, (p, 5), generator=g)
+    vals = torch.arange(1, p + 1)
+    og, og_all = _rank_origins(mesh, full.alive, p // d, 300)
+    og2, og2_all = _rank_origins(mesh, full.alive, p // d, 400)
+    store = ss.sharded_empty_store(cfg.n_nodes, scfg, mesh)
+    kernels.reset_launches()
+    (store, rep), put_s = _timed(mesh, lambda: ss.sharded_announce(
+        shard, cfg, store, scfg, rows(keys), rows(vals),
+        rows(torch.ones_like(vals)), 0, mesh, capacity_factor=2.0,
+        origins=og))
+    gr, get_s = _timed(mesh, lambda: ss.sharded_get(
+        shard, cfg, store, scfg, rows(keys), mesh, capacity_factor=2.0,
+        origins=og2))
+    storage_ln.update(kernels.LAUNCHES)     # the local engine's stay out
+    rec = {"put_wall_s": put_s, "get_wall_s": get_s,
+           "puts_per_s": p / put_s, "gets_per_s": p / get_s,
+           "hit_rate": mean_all(gr.hit),
+           "vals_ok": bool(pm.gather_rows(mesh, torch.where(
+               gr.hit, gr.val == rows(vals), True)).all()),
+           "mean_replicas": mean_all(rep.replicas)}
+    del store
+    if mesh.rank == 0:
+        lst = stg.empty_store(cfg.n_nodes, scfg, dev)
+        sync()
+        t0 = time.perf_counter()
+        lst, _ = stg.announce(full, cfg, lst, scfg, keys.to(dev),
+                              vals.to(dev), torch.ones_like(vals).to(dev), 0,
+                              origins=og_all, device=dev)
+        sync()
+        t1 = time.perf_counter()
+        lg = stg.get_values(full, cfg, lst, scfg, keys.to(dev),
+                            origins=og2_all, device=dev)
+        sync()
+        rec["local_put_wall_s"] = t1 - t0
+        rec["local_get_wall_s"] = time.perf_counter() - t1
+        rec["local_hit_rate"] = float(lg.hit.float().mean())
+        del lst, lg
+    mesh.barrier()
+    out["putget_1M"] = rec
+    del full, shard
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the chaos cycle with listeners at 65,536 nodes -----------------
+    full, shard, cfg = _rank_swarm(mesh, STORE_RANK_NODES, 0)
+    n = cfg.n_nodes
+    lo, hi = mesh.rank * n // d, (mesh.rank + 1) * n // d
+    ccfg = stg.StoreConfig(slots=4, listen_slots=4, max_listeners=1 << 12,
+                           payload_words=8, listen_ttl=1000)
+    p = n * ccfg.slots // 16
+    nl = min(2048, p)                  # bench.py: the listener subset
+    kf, drop, cf = 0.5, 0.15, 4.0
+    g = torch.Generator().manual_seed(1)
+    keys = torch.randint(0, 2**32, (p, 5), generator=g)
+    vals = torch.arange(1, p + 1)
+    pls = torch.randint(0, 2**32, (p, 8), generator=g)
+    regs = torch.arange(nl, dtype=torch.int32)
+    gd = torch.Generator(device=dev).manual_seed(100 + mesh.rank)
+    gw = torch.Generator(device=dev).manual_seed(7)      # the same on every rank
+    seeds = iter(range(600, 700))
+
+    def og_of(m, sh=shard):
+        return _rank_origins(mesh, sh.alive, m // d, next(seeds))[0]
+
+    def sweep(sh, now, node_range, **kw):
+        nonlocal store
+        rows_n = (node_range[1] - node_range[0]) * ccfg.slots
+        chunk = rows_n
+        store, r = ss.sharded_republish(
+            sh, cfg, store, ccfg, now, mesh, capacity_factor=cf,
+            chunk=chunk, node_range=node_range, drop_frac=drop,
+            drop_generator=gd,
+            origins_of=lambda i: _rank_origins(
+                mesh, sh.alive, rows_n // d, 500 + now)[0], **kw)
+        return r
+
+    t_chaos = time.perf_counter()
+    kernels.reset_launches()
+    store = ss.sharded_empty_store(n, ccfg, mesh)
+    store, _ = ss.sharded_listen_at(shard, cfg, store, ccfg,
+                                    rows(keys[:nl]), rows(regs), mesh,
+                                    capacity_factor=cf, now=0,
+                                    origins=og_of(nl))
+    store, rep = ss.sharded_announce(shard, cfg, store, ccfg, rows(keys),
+                                     rows(vals), rows(torch.ones_like(vals)),
+                                     1, mesh, capacity_factor=cf,
+                                     payloads=rows(pls), origins=og_of(p))
+    first = float(store.notified[:nl].float().mean())
+    store = ss.sharded_ack_listeners(store, regs)
+    half = n // 2 // d * d
+    sweep(shard, 2, (0, half))
+    dead = sw.churn(full, gw, kf, cfg)
+    dshard = shard._replace(alive=dead.alive, tables=shard.tables.clone())
+    sweep(dshard, 3, (half, n))          # mid-chaos: corpse-laden tables
+    sw.heal_swarm(dshard, cfg, gw, rows=slice(lo, hi))
+    sweep(dshard, 4, (0, n), probe=True, full_capacity_factor=min(
+        cf, 2 * kf + 0.2))
+    res = ss.sharded_get(dshard, cfg, store, ccfg, rows(keys), mesh,
+                         capacity_factor=cf, origins=og_of(p, dshard))
+    hit = pm.gather_rows(mesh, res.hit)
+    val_ok = bool(pm.gather_rows(mesh, torch.where(res.hit, res.val == rows(vals),
+                                              True)).all())
+    pl_ok = bool(pm.gather_rows(mesh, torch.where(
+        res.hit[:, None], res.payload == rows(pls), True)).all())
+    redeliver = float(store.notified[:nl].float().mean())
+    store = ss.sharded_ack_listeners(store, regs)
+    vals2 = vals[:nl] + 1_000_000
+    pls2 = torch.randint(0, 2**32, (nl, 8), generator=g)
+    store, _ = ss.sharded_announce(dshard, cfg, store, ccfg, rows(keys[:nl]),
+                                   rows(vals2), rows(torch.full((nl,), 2)),
+                                   5, mesh, capacity_factor=cf,
+                                   payloads=rows(pls2),
+                                   origins=og_of(nl, dshard))
+    second = float((store.notified[:nl]
+                    & (store.nvals[:nl] == vals2.to(dev))).float().mean())
+    store = ss.sharded_cancel_listen(store, ccfg, regs[:nl // 2])
+    store = ss.sharded_ack_listeners(store, regs)
+    store, _ = ss.sharded_announce(dshard, cfg, store, ccfg, rows(keys[:nl]),
+                                   rows(vals2 + 1), rows(torch.full((nl,), 3)),
+                                   6, mesh, capacity_factor=cf,
+                                   origins=og_of(nl, dshard))
+    n3 = store.notified[:nl]
+    out["chaos"] = {
+        "n_nodes": n, "puts": p, "listeners": nl, "kill_frac": kf,
+        "drop_frac": drop, "survival": float(hit.float().mean()),
+        "vals_ok": val_ok, "payload_ok": pl_ok,
+        "first_delivery_rate": first, "redelivery_rate": redeliver,
+        "second_change_rate": second,
+        "canceled_leak_rate": float(n3[:nl // 2].float().mean()),
+        "canceled_rows_left": int(((store.lids >= 0) & (store.lids < nl // 2)
+                                   ).sum()),
+        "active_third_rate": float(n3[nl // 2:].float().mean()),
+        "wall_s": time.perf_counter() - t_chaos}
+    del store, dshard
+
+    # -- probe vs full republish at 65,536 nodes (W = 64, slots 4) -----
+    rcfg = stg.StoreConfig(slots=4, listen_slots=4, max_listeners=1 << 10,
+                           payload_words=64)
+    pr = n * rcfg.slots // 16
+    g = torch.Generator().manual_seed(1)
+    rkeys = torch.randint(0, 2**32, (pr, 5), generator=g)
+    rvals = torch.arange(1, pr + 1)
+    rpl = torch.randint(0, 2**32, (pr, 64), generator=g)
+    p_shard = (n // d) * rcfg.slots
+    arms = {}
+    for probe in (False, True):
+        t0 = time.perf_counter()
+        st_ = ss.sharded_empty_store(n, rcfg, mesh)
+        st_, _ = ss.sharded_announce(
+            shard, cfg, st_, rcfg, rows(rkeys), rows(rvals),
+            rows(torch.ones_like(rvals)), 0, mesh, capacity_factor=cf,
+            payloads=rows(rpl), origins=_rank_origins(mesh, shard.alive,
+                                                      pr // d, 20)[0])
+        gk = torch.Generator(device=dev).manual_seed(100)
+        dsh = shard._replace(alive=sw.churn(full, gk, kf, cfg).alive)
+        fcf = min(cf, 2 * kf + 0.2) if probe else None
+        fcf2 = 0.5 if probe else None
+        for now, f, seed in ((1, fcf, 22), (2, fcf2, 23)):
+            st_, _ = ss.sharded_republish(
+                dsh, cfg, st_, rcfg, now, mesh, capacity_factor=cf,
+                probe=probe, full_capacity_factor=f,
+                origins_of=lambda i, seed=seed: _rank_origins(
+                    mesh, dsh.alive, p_shard, seed + i)[0])
+        res = ss.sharded_get(dsh, cfg, st_, rcfg, rows(rkeys), mesh,
+                             capacity_factor=cf,
+                             origins=_rank_origins(mesh, dsh.alive, pr // d,
+                                                   24)[0])
+        sync()
+        arms["probe" if probe else "full"] = {
+            "survival": mean_all(res.hit),
+            "intact": bool(pm.gather_rows(mesh, torch.where(
+                res.hit[:, None], res.payload == rows(rpl), True)).all()),
+            "wire_words_churn_sweep": ss.storage_wire_words(
+                cfg, rcfg, p_shard, d, cf, probe=probe,
+                full_capacity_factor=fcf),
+            "wire_words_steady_sweep": ss.storage_wire_words(
+                cfg, rcfg, p_shard, d, cf, probe=probe,
+                full_capacity_factor=fcf2),
+            "wall_s": time.perf_counter() - t0}
+        del st_, res
+    out["repub"] = {"n_nodes": n, "puts": pr, "payload_words": 64,
+                    **arms, "survival_equal": arms["probe"]["survival"]
+                    == arms["full"]["survival"],
+                    "wire_reduction_churn": 1 - arms["probe"][
+                        "wire_words_churn_sweep"] / arms["full"][
+                        "wire_words_churn_sweep"]}
+
+    # -- chunked values with torn rows at 65,536 nodes -----------------
+    kcfg = stg.StoreConfig(slots=16, listen_slots=2, max_listeners=64,
+                           payload_words=2)
+    parts, pc = 4, 8192
+    g = torch.Generator().manual_seed(9)
+    ckeys = torch.randint(0, 2**32, (pc, 5), generator=g)
+    cpl = torch.randint(0, 2**32, (pc, parts, 2), generator=g)
+    cpl2 = torch.randint(0, 2**32, (pc, parts, 2), generator=g)
+    clen = torch.randint(0, parts * 8 + 1, (pc,), generator=g)
+    r_ = torch.rand(pc, generator=g)
+    torn0 = r_ < 0.1                                  # part 0 never sent
+    over = (r_ >= 0.1) & (r_ < 0.2)                   # seq-2 write dies
+    pdm = torch.zeros((pc, parts), dtype=torch.bool)
+    pdm[:, 0] = torn0
+    inf = float("inf")
+    t0 = time.perf_counter()
+    kst = ss.sharded_empty_store(n, kcfg, mesh)
+    cv = torch.arange(1, pc + 1)
+    kst, _ = ss.sharded_announce_chunked(
+        shard, cfg, kst, kcfg, rows(ckeys), rows(cv),
+        rows(torch.ones_like(cv)), 1, mesh, rows(cpl), rows(clen),
+        capacity_factor=inf, part_drop_mask=rows(pdm),
+        origins=_rank_origins(mesh, shard.alive, pc // d, 30)[0])
+    ow = over.nonzero().squeeze(1)
+    ow = ow[:ow.shape[0] // d * d]
+    kst, _ = ss.sharded_announce_chunked(
+        shard, cfg, kst, kcfg, rows(ckeys[ow]), rows(cv[ow] + pc),
+        rows(torch.full((ow.shape[0],), 2)), 2, mesh, rows(cpl2[ow]),
+        rows(clen[ow]), capacity_factor=inf, part_range=(0, 2),
+        origins=_rank_origins(mesh, shard.alive, ow.shape[0] // d, 31)[0])
+    cr = ss.sharded_get_chunked(shard, cfg, kst, kcfg, rows(ckeys), mesh,
+                                parts, capacity_factor=inf,
+                                origins=_rank_origins(mesh, shard.alive,
+                                                      pc // d, 32)[0])
+    chit = pm.gather_rows(mesh, cr.hit).cpu()
+    cpay = pm.gather_rows(mesh, cr.payload).cpu()
+    cval = pm.gather_rows(mesh, cr.val).cpu()
+    need = (-(-clen // 4) + 1) // 2                # parts a length needs
+    is_over = torch.zeros(pc, dtype=torch.bool)
+    is_over[ow] = True
+    torn_over = is_over & (need > 2)
+    torn = torn0 | torn_over
+    words = -(-clen // 4)
+    mask = torch.arange(parts * 2)[None, :] < words[:, None]
+    want1 = torch.where(mask, cpl.reshape(pc, -1), 0)
+    want2 = torch.where(mask, cpl2.reshape(pc, -1), 0)
+    exact = torch.where(is_over[:, None], want2, want1)
+    garbled = int((chit & ~(cpay == exact).all(1)).sum())
+    out["chunked"] = {
+        "n_nodes": n, "values": pc, "parts": parts,
+        "torn_rows": int(torn.sum()), "torn_missing": int((~chit[torn]).sum()),
+        "torn_read": int(chit[torn].sum()), "garbled": garbled,
+        "clean_hit_rate": float(chit[~torn].float().mean()),
+        "overwrite_vals_ok": bool((cval[is_over & chit]
+                                   == (torch.arange(1, pc + 1) + pc)[
+                                       is_over & chit]).all()),
+        "wall_s": time.perf_counter() - t0}
+    del kst, cr
+
+    storage_ln.update(kernels.LAUNCHES)
+    out["launches_storage"] = {k: storage_ln[k] for k in kernels.LAUNCHES}
+    kernels.reset_launches()
+
+    # -- the sharded index at 65,536 nodes ------------------------------
+    spec, iscfg = index_geometry()
+    ikeys, ehash, evid, rng, pz = index_entries(INDEX_RANKS,
+                                                STORE_RANK_INDEX_DRAWN, 1.2)
+    t0 = time.perf_counter()
+    x = si.ShardedDeviceIndex(shard, cfg, ss.sharded_empty_store(n, iscfg,
+                                                                 mesh),
+                              iscfg, spec, mesh, seed=3)
+    build = x.insert_batch(ikeys, ehash, evid)
+    sync()
+    build_s = time.perf_counter() - t0
+    orc = ix.PhtOracle(spec)
+    bits = x.linearize(ikeys)
+    for i in range(len(ikeys)):
+        orc.insert(bits[i], ehash[i].astype(">u4").tobytes(), int(evid[i]))
+    n_scans = INDEX_SCANS            # one batch: the walks share each op
+    lo_r = rng.choice(INDEX_RANKS, size=n_scans, p=pz)
+    hi_r = np.minimum(lo_r + 63, INDEX_RANKS - 1)
+    lo_b = x.linearize([scan_key(r) for r in lo_r])
+    hi_b = x.linearize([scan_key(r) for r in hi_r])
+    want = [orc.entries_in_range(lo_b[i], hi_b[i]) for i in range(n_scans)]
+    t0 = time.perf_counter()
+    got, _lv = x.range_query(lo_b, hi_b)
+    scan_s = time.perf_counter() - t0
+    want_n = sum(len(w) for w in want)
+    matched = sum(len(set(got[i]) & want[i]) for i in range(n_scans))
+    extras = sum(len(set(got[i]) - want[i]) for i in range(n_scans))
+    out["index"] = {"n_nodes": n, "entries": len(ikeys), "scans": n_scans,
+                    "scan_span": 64, "build_wall_s": build_s,
+                    "build_entries_per_s": len(ikeys) / build_s,
+                    "scan_wall_s": scan_s, "entries_expected": want_n,
+                    "recall": matched / want_n if want_n else 1.0,
+                    "extras": extras, "splits": build["splits"],
+                    "store_ops": x._op}
+    del x
+    out["launches_index"] = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+
+    # -- the resident engine, eager over gloo, at 65,536 nodes ----------
+    ts_, skeys, klass = sv.poisson_zipf_events(2000.0, 5.0, 4096, 1.1,
+                                               seed=7)
+    eng = sv.ShardedResidentServeEngine(shard, cfg, 2048, mesh,
+                                        admit_cap=512)
+    rep = sv.serve_resident(eng, ts_, skeys,
+                            torch.Generator(device=dev).manual_seed(3),
+                            klass=klass, duration=float(ts_[-1]) + 1e-9)
+    rrec = {"graph": eng.graph, **serve_summary(rep),
+            "macro_steps": rep["resident"]["iterations"],
+            "ring_shed": rep["resident"]["ring_shed"],
+            "exchange": rep["resident"]["exchange"],
+            "init_rows_shipped": int(eng.init_shipped),
+            "conserved": conserved(rep),
+            "found_set_empty": int((rep["found"] < 0).all(1).sum()),
+            "readbacks": eng.readbacks}
+    if mesh.rank == 0 and rep["completed"]:
+        first = np.argsort(rep["request"], kind="stable")[:N_RECALL]
+        found = torch.from_numpy(rep["found"][first]).to(dev)
+        tk = torch.from_numpy(skeys[rep["request"][first]].astype(
+            np.int64)).to(dev)
+        rrec["recall_at_8"] = recall_at(
+            sw.true_closest(full, cfg, tk, device=dev), found)
+    out["resident"] = rrec
+    out["launches_resident"] = dict(kernels.LAUNCHES)
+    out["collectives"] = dict(mesh.calls)
+    out["transport"] = mesh.transport
+    return out
+
+
+def phase_sharded_storage_ranks(card, failures):
+    """4 gloo ranks sharing the card (:func:`storage_ranks_rank`).
+    Returns the launch counts summed over the ranks, by path (storage,
+    index, resident)."""
+    from opendht_tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    outs = pm.spawn(storage_ranks_rank, 4, backend="gloo", device="cuda:0",
+                    timeout=RANK_TIMEOUT, limit=900.0)
+    r0 = outs[0]
+    launches = {path: {k: sum(o["launches_" + path][k] for o in outs)
+                       for k in r0["launches_" + path]}
+                 for path in ("storage", "index", "resident")}
+    shipped = sum(o["resident"]["init_rows_shipped"] for o in outs)
+    res = r0["resident"]
+    log("sharded_storage_ranks " + json.dumps({
+        "ranks": 4, "transport": r0["transport"],
+        "walls_note": "four ranks time-sharing one card through gloo "
+                      "(bytes through host memory): not a four-card number",
+        **{k: r0[k] for k in ("putget_1M", "chaos", "repub", "chunked",
+                              "index")},
+        "resident": {**res, "init_rows_shipped_all_ranks": shipped},
+        "collectives_rank0": r0["collectives"], "launches": launches,
+        "wall_s": time.perf_counter() - t0, "card": card}))
+    pg, ch, rp, ck, ixr = (r0[k] for k in ("putget_1M", "chaos", "repub",
+                                           "chunked", "index"))
+    if not (pg["vals_ok"] and pg["hit_rate"] >= 0.99):
+        failures.append(f"sharded storage ranks put/get: hit rate "
+                        f"{pg['hit_rate']}, vals ok {pg['vals_ok']}")
+    if ch["canceled_leak_rate"] != 0 or ch["canceled_rows_left"] \
+            or not (ch["vals_ok"] and ch["payload_ok"]):
+        failures.append(f"sharded chaos storage: canceled leak "
+                        f"{ch['canceled_leak_rate']}, rows left "
+                        f"{ch['canceled_rows_left']}, vals {ch['vals_ok']}, "
+                        f"payloads {ch['payload_ok']}")
+    # Probe and full survival are reported, not held equal: a probe
+    # refresh leaves its slot out of the full phase's batch, so a new
+    # key may take that ring slot where the full sweep's update would
+    # have shielded it (``_store_insert``'s refresh-conflict rule).
+    if not (rp["probe"]["intact"] and rp["full"]["intact"]):
+        failures.append("sharded repub: a read's bytes differ from the put")
+    if ck["torn_read"] or ck["garbled"] or not ck["overwrite_vals_ok"]:
+        failures.append(f"sharded chunked: {ck['torn_read']} torn rows read, "
+                        f"{ck['garbled']} garbled")
+    if ixr["recall"] != 1.0 or ixr["extras"]:
+        failures.append(f"sharded index: recall {ixr['recall']}, extras "
+                        f"{ixr['extras']}")
+    if not (res["conserved"] and res["ring_shed"] == 0
+            and res["found_set_empty"] == 0
+            and res.get("recall_at_8", 0) >= 0.99 and not res["graph"]
+            and shipped == res["exchange"]["rows_init"]):
+        failures.append(f"sharded resident (4 ranks, eager): {res}")
+    for path, ln in launches.items():
+        if ln["merge_round"] <= 0:
+            failures.append(f"K1 was not launched on the sharded {path} "
+                            f"ranks")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4057,6 +5165,8 @@ def main() -> int:
     phase_index_soak_card_vs_cpu(dev, failures)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_sharded_card_vs_cpu(dev, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_mesh_card_vs_cpu(card, failures)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # ---- the main path -------------------------------------------------
@@ -4157,7 +5267,8 @@ def main() -> int:
     # ---- this slice's paths: the chaos engine and the storage plane ----
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_c = phase_chaos_full(sw, swarm, cfg, targets, card, failures)
-    launches_s = phase_storage_full(sw, swarm, cfg_f, card, failures)
+    launches_s, local_storage = phase_storage_full(sw, swarm, cfg_f, card,
+                                                   failures)
 
     # ---- the serve engine and chunked values ----------------------------
     launches_v, serve_times, burst_legs, burst_profiles = phase_serve_full(
@@ -4172,6 +5283,9 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_sh = phase_sharded_path(sw, swarm, cfg, targets, origins, card,
                                      failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    launches_sr, launches_ss = phase_sharded_resident_storage_paths(
+        sw, swarm, cfg, targets, origins, res, card, failures, local_storage)
     # ---- the PHT index and the soak (on swarms of their own) -----------
     del res, truth, targets, origins
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
@@ -4182,6 +5296,8 @@ def main() -> int:
     launches_shr = phase_sharded_ranks(card, failures)
     launches_shc = phase_sharded_chaos(card, failures)
     launches_shs = phase_sharded_serve(card, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    launches_st = phase_sharded_storage_ranks(card, failures)
     # The monitor kills nodes and heals the tables in place: last.
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_m = phase_monitor_full(sw, swarm, cfg, card, failures)
@@ -4191,7 +5307,12 @@ def main() -> int:
                "index": launches_i, "soak": launches_so,
                "monitor": launches_m, "sharded": launches_sh,
                "sharded_ranks": launches_shr, "sharded_chaos": launches_shc,
-               "sharded_serve": launches_shs}
+               "sharded_serve": launches_shs,
+               "sharded_resident": launches_sr,
+               "sharded_storage": launches_ss,
+               "sharded_storage_ranks": launches_st["storage"],
+               "sharded_index_ranks": launches_st["index"],
+               "sharded_resident_ranks": launches_st["resident"]}
     for row in kernel_rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}

@@ -9,8 +9,9 @@ chosen device (the card unless the caller asks for the CPU, as every
 entry point resolves it), so both packages then compute on the same state — the
 counterpart of carrying a model's weights across.  Unsigned 32-bit
 arrays widen to int64 (:mod:`opendht_tpu_torch.ops.u32`); tables keep
-their bytes.  For the sharded engines, :func:`swarm_shard_from_numpy`
-and :func:`state_shard_from_numpy` give one rank its rows.
+their bytes.  For the sharded engines, :func:`swarm_shard_from_numpy`,
+:func:`state_shard_from_numpy` and :func:`store_shard_from_numpy` give
+one rank its rows.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from .models.index import DeviceIndex
 from .models.monitor import FreshnessState
 from .models.serve import ResultCache, ServeRings
-from .models.storage import SwarmStore
+from .models.storage import NODE_LEAVES, SwarmStore
 from .models.swarm import LookupState, LookupTrace, Swarm, resolve_device
 
 
@@ -136,6 +137,30 @@ def store_from_numpy(*fields, device=None) -> SwarmStore:
     for name, x in f.items():
         out[name] = _field(x.reshape(shapes.get(name, x.shape)), device)
     return SwarmStore(**out)
+
+
+def store_shard_from_numpy(*fields, rank: int, size: int,
+                           device=None) -> SwarmStore:
+    """One rank's shard of a whole JAX ``SwarmStore`` (numpy arrays, in
+    field order) for the sharded storage engines: its node rows
+    ``[r·N/D, (r+1)·N/D)`` of every node leaf (the flat key, payload and
+    listener arrays by their node rows too), and the listener delivery
+    tables (``notified``, ``nseqs``, ``nvals``, ``npayload``, ``nsizes``)
+    whole, as every rank holds them."""
+    if len(fields) != len(SwarmStore._fields):
+        raise ValueError(f"a SwarmStore has {len(SwarmStore._fields)} "
+                         f"fields, got {len(fields)}")
+    f = dict(zip(SwarmStore._fields, map(np.asarray, fields)))
+    n = f["vals"].shape[0]
+    out = []
+    for name, x in f.items():
+        if name not in NODE_LEAVES:
+            out.append(x)
+        elif x.shape[0] == n:
+            out.append(_rank_rows(x, rank, size))
+        else:           # a flat key, payload or listener array: node rows
+            out.append(_rank_rows(x.reshape(n, -1), rank, size).reshape(-1))
+    return store_from_numpy(*out, device=device)
 
 
 def cache_from_numpy(*fields, device=None) -> ResultCache:

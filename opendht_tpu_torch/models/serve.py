@@ -65,8 +65,13 @@ import torch
 from ..ops import kernels
 from ..ops.u32 import MASK32, U32_MAX, mul32
 from ..ops.xor_metric import N_LIMBS, merge_ladder_widths
-from ..parallel.mesh import gather_rows, shard_rows
-from ..parallel.sharded import sharded_lookup_init, sharded_lookup_step
+from ..parallel.mesh import gather_many, shard_rows
+from ..parallel.sharded import (
+    _sharded_resident_step,
+    gather_seeded,
+    sharded_lookup_init,
+    sharded_lookup_step,
+)
 from ..utils.rate_limiter import TokenBucket
 from .swarm import (
     LookupResult,
@@ -507,19 +512,12 @@ class ShardedServeEngine(ServeEngine):
         """Seed this rank's rows of the batch through the routed init,
         gather every rank's seeded rows (one ``all_gather``) and scatter
         those whose slot is this rank's."""
-        m, s = self.mesh, self.cfg.search_width
-        new = sharded_lookup_init(
+        m = self.mesh
+        new = gather_seeded(m, sharded_lookup_init(
             self.swarm, self.cfg, shard_rows(m, keys), m,
             shard_rows(m, origins),
             skip=None if skip is None else shard_rows(m, skip),
-            exchange=self.init_exchange)
-        rows = gather_rows(m, torch.cat(
-            [new.targets, new.idx.to(torch.int64), new.dist,
-             new.queried.to(torch.int64)], dim=1))
-        new = new._replace(targets=rows[:, :N_LIMBS],
-                           idx=rows[:, N_LIMBS:N_LIMBS + s].to(torch.int32),
-                           dist=rows[:, N_LIMBS + s:N_LIMBS + 2 * s],
-                           queried=rows[:, N_LIMBS + 2 * s:] != 0)
+            exchange=self.init_exchange))
         if skip is not None:
             slots = torch.where(skip, self.slots, slots)
         return _scatter_rows_into(st, new, self._local_slots(slots), rnd)
@@ -550,27 +548,18 @@ class ShardedServeEngine(ServeEngine):
     def snapshot(self, st):
         """Every rank's rows, gathered (one ``all_gather``) and read back
         in one transfer."""
-        snap = _snapshot(self.swarm, self.cfg, st)
-        flat = gather_rows(self.mesh, torch.cat(
-            [x.reshape(x.shape[0], -1).to(torch.int64) for x in snap],
-            dim=1))
-        out, c = [], 0
-        for x in snap:
-            w = x[0].numel()
-            out.append(flat[:, c:c + w].reshape(-1, *x.shape[1:]).to(x.dtype))
-            c += w
-        return _fetch(*out)
+        return _fetch(*gather_many(self.mesh,
+                                   _snapshot(self.swarm, self.cfg, st)))
 
     def all_done(self, st) -> bool:
         return int(self.mesh.all_reduce(
             (~st.done).sum().to(torch.int64), "sum")) == 0
 
     def clock(self) -> float:
-        """The latest of the ranks' ``perf_counter`` readings (one
-        ``all_reduce``), the same on every rank."""
-        t = torch.tensor([time.perf_counter()], dtype=torch.float64,
-                         device=self.device)
-        return float(self.mesh.all_reduce(t, "max")[0])
+        """The latest of the ranks' ``perf_counter`` readings
+        (:meth:`~opendht_tpu_torch.parallel.mesh.Mesh.host_max`), the
+        same on every rank."""
+        return self.mesh.host_max(time.perf_counter())
 
 
 # ---------------------------------------------------------------------------
@@ -1578,6 +1567,7 @@ class ResidentServeEngine(ServeEngine):
         self.replays = 0        # graph replays (card)
         self.graphs: dict = {}  # (use_cache, rounds, expire) -> graph
         self._io = None
+        self.graph = self.device.type == "cuda"   # the runner: graph or eager
 
     def empty_rings(self) -> ServeRings:
         return empty_serve_rings(self.slots, self.ring_slots, self.device)
@@ -1597,19 +1587,25 @@ class ResidentServeEngine(ServeEngine):
             use_cache = self.cache is not None
         if use_cache and self.cache is None:
             raise ValueError("use_cache=True needs cache_slots>0")
-        if self.device.type == "cuda":
+        if self.graph:
             return self._replay(st, rings, keys, reqs, cls, origins, n_new,
                                 rnd0, rounds, expire, use_cache)
         d = self.device
-        st, rings, cache, out = _resident_core(
-            self.swarm, self.cfg, st, rings,
-            self.cache if use_cache else None, _upload(keys, torch.int64, d),
-            _upload(reqs, torch.int32, d), _upload(cls, torch.int32, d),
-            _upload(origins, torch.int32, d), int(n_new), int(rnd0), rounds,
-            expire, self.rung_block, gated=False)
+        st, rings, cache, out = self._body(
+            st, rings, self.cache if use_cache else None,
+            _upload(keys, torch.int64, d), _upload(reqs, torch.int32, d),
+            _upload(cls, torch.int32, d), _upload(origins, torch.int32, d),
+            int(n_new), int(rnd0), rounds, expire, gated=False)
         if use_cache:
             self.cache = cache
         return st, rings, out
+
+    def _body(self, st, rings, cache, keys, reqs, cls, origins, n_new, rnd0,
+              rounds: int, expire: bool, gated: bool):
+        """The macro step's program → ``(st, rings, cache, out)``."""
+        return _resident_core(self.swarm, self.cfg, st, rings, cache, keys,
+                              reqs, cls, origins, n_new, rnd0, rounds, expire,
+                              self.rung_block, gated)
 
     def read_out(self, out) -> ResidentOut:
         """A macro step's output as numpy arrays.  On the card this waits
@@ -1631,7 +1627,7 @@ class ResidentServeEngine(ServeEngine):
         builds the kernels); on the CPU, run one macro step on throwaway
         carries (nothing queued)."""
         rounds = self.rounds_per_iter if rounds is None else rounds
-        if self.device.type == "cuda":
+        if self.graph:
             self._graph(self.cache is not None, rounds, True)
             return
         a = self.admit_cap
@@ -1676,13 +1672,12 @@ class ResidentServeEngine(ServeEngine):
 
         def body():
             p = io["packed_in"]
-            return _resident_core(
-                self.swarm, self.cfg, io["st"], io["rings"],
-                io["cache"] if use_cache else None, p[:5 * a].view(a, N_LIMBS),
-                p[5 * a:6 * a].to(torch.int32), p[6 * a:7 * a].to(torch.int32),
-                p[7 * a:8 * a].to(torch.int32), p[8 * a].to(torch.int32),
-                p[8 * a + 1].to(torch.int32), rounds, expire, self.rung_block,
-                gated=True)
+            return self._body(
+                io["st"], io["rings"], io["cache"] if use_cache else None,
+                p[:5 * a].view(a, N_LIMBS), p[5 * a:6 * a].to(torch.int32),
+                p[6 * a:7 * a].to(torch.int32), p[7 * a:8 * a].to(torch.int32),
+                p[8 * a].to(torch.int32), p[8 * a + 1].to(torch.int32), rounds,
+                expire, gated=True)
 
         # One eager pass on a side stream (the body is pure: the static
         # carries are untouched) loads the kernel libraries and their
@@ -1694,6 +1689,10 @@ class ResidentServeEngine(ServeEngine):
             body()
         cur.wait_stream(side)
         before = dict(kernels.CAPTURED)
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None:
+            calls0, bytes0 = (dict(mesh.captured),
+                              dict(mesh.captured_bytes))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):       # the default (global) capture mode
             st, rings, cache, out = body()
@@ -1707,6 +1706,11 @@ class ResidentServeEngine(ServeEngine):
         self.graphs[key] = g = {
             "graph": graph, "out": packed,
             "launches": {k: kernels.CAPTURED[k] - before[k] for k in before}}
+        if mesh is not None:
+            g["collectives"] = {k: v - calls0.get(k, 0)
+                                for k, v in mesh.captured.items()}
+            g["collective_bytes"] = {k: v - bytes0.get(k, 0)
+                                     for k, v in mesh.captured_bytes.items()}
         return g
 
     def _replay(self, st, rings, keys, reqs, cls, origins, n_new, rnd0,
@@ -1744,6 +1748,8 @@ class ResidentServeEngine(ServeEngine):
             p[lo:hi].copy_(x.reshape(-1))
         g["graph"].replay()
         kernels.count_replay(g["launches"])
+        if "collectives" in g:
+            self.mesh.count_replay(g["collectives"], g["collective_bytes"])
         self.replays += 1
         b = io["turn_out"]
         io["turn_out"] ^= 1
@@ -1752,6 +1758,89 @@ class ResidentServeEngine(ServeEngine):
         io["out_ev"][b].record()
         io["out_seq"][b] = io["seq"]
         return io["st"], io["rings"], PendingOut(b, io["seq"])
+
+
+class ShardedResidentServeEngine(ResidentServeEngine):
+    """The resident engine over a mesh of ranks: the macro step is
+    :func:`~opendht_tpu_torch.parallel.sharded._sharded_resident_step` —
+    the state, rings and cache whole on every rank, the routed init
+    seeding each rank's rows of the popped batch (the cache probed
+    first, so a hit never rides the ``all_to_all``: ``xchg_init_rows``
+    counts the admitted rows), the routed round loop on each rank's
+    slots.  ``swarm`` is the rank's shard; ``slots`` and ``admit_cap``
+    must divide the mesh; no ``rung_block`` (the routed round prices its
+    own exchange).  The macro step's ``origins [A]`` are the whole
+    batch's, the same on every rank.
+
+    The runner follows the mesh's backend and is recorded in
+    :attr:`graph`: over NCCL on the card the whole macro step,
+    collectives included, is one captured CUDA graph (the gated round
+    loop, its pending count an ``all_reduce`` on the device); over gloo
+    (host collectives, which no graph captures) or on the CPU it runs
+    eagerly in the early-exit form, one host ``all_reduce`` of the
+    pending count a trip.  ``graph=True`` on a mesh that cannot capture
+    raises; there is no fallback.  :meth:`clock` is the ranks' latest
+    reading (:meth:`~opendht_tpu_torch.parallel.mesh.Mesh.host_max`), so
+    every rank takes the serve loop's decisions together.
+    :attr:`init_shipped` (a device scalar)
+    accumulates the solicitations this rank shipped on the init
+    ``all_to_all`` over the macro steps run (a graph replay adds its
+    own; the eager pass before a capture adds nothing), counted in the
+    exchange itself: with the cache on, the mesh's sum is the admitted
+    rows, never a hit."""
+
+    def __init__(self, swarm: Swarm, cfg: SwarmConfig, slots: int, mesh,
+                 capacity_factor: float = 2.0, admit_cap: int | None = None,
+                 cache_slots: int = 0, ring_slots: int | None = None,
+                 rounds_per_iter: int = 2, graph: bool | None = None):
+        super().__init__(swarm, cfg, slots, admit_cap,
+                         cache_slots=cache_slots, ring_slots=ring_slots,
+                         rounds_per_iter=rounds_per_iter, device=mesh.device)
+        self.mesh, self.capacity_factor = mesh, capacity_factor
+        d = mesh.size
+        if slots % d or self.admit_cap % d:
+            raise ValueError(f"serve slots {slots} and admit_cap "
+                             f"{self.admit_cap} must divide the {d}-device "
+                             f"mesh")
+        can = mesh.backend == "nccl" and self.device.type == "cuda"
+        if graph and not can:
+            raise ValueError(
+                f"a CUDA graph needs an NCCL mesh on the card; this mesh "
+                f"is {mesh.transport}, whose collectives no graph can "
+                f"capture: use graph=False (the eager runner)")
+        self.graph = can if graph is None else bool(graph)
+        self.init_shipped = torch.zeros((), dtype=torch.int64,
+                                        device=self.device)
+
+    @property
+    def exchange_row_bytes(self) -> int:
+        """Bytes one admission or solicitation row pays on the routed
+        exchange: an 8-byte query row plus a ``2K``-candidate answer row
+        (``8·K`` bytes, u16 pair windows and i32 index rows alike)."""
+        return 8 + 8 * self.cfg.bucket_k
+
+    def _body(self, st, rings, cache, keys, reqs, cls, origins, n_new, rnd0,
+              rounds: int, expire: bool, gated: bool):
+        ex: dict = {}
+        out = _sharded_resident_step(
+            self.mesh, self.swarm, self.cfg, st, rings, cache, keys, reqs,
+            cls, origins, n_new, rnd0, self.capacity_factor, rounds, expire,
+            gated, exchange=ex)
+        self.init_shipped.add_(ex["attempted"])
+        return out
+
+    def _graph(self, use_cache: bool, rounds: int, expire: bool):
+        if (use_cache, rounds, expire) in self.graphs:
+            return self.graphs[(use_cache, rounds, expire)]
+        # The eager pass before a capture ships rows that no macro step
+        # admitted: take its count back (the capture's add is a replay's).
+        shipped = self.init_shipped.clone()
+        g = super()._graph(use_cache, rounds, expire)
+        self.init_shipped.copy_(shipped)
+        return g
+
+    def clock(self) -> float:
+        return self.mesh.host_max(time.perf_counter())
 
 
 def resident_closed_loop_replay(swarm: Swarm, cfg: SwarmConfig,
@@ -1772,7 +1861,10 @@ def resident_closed_loop_replay(swarm: Swarm, cfg: SwarmConfig,
     gated trips at the default ``max_steps``).  Returns ``(LookupResult,
     final state, ResidentOut)``: the result on the engine's device, the
     output as numpy arrays; on the card the state is the graph's static
-    state."""
+    state.  Through a :class:`ShardedResidentServeEngine` the targets and
+    origins are the whole batch's on every rank (the origins JAX's
+    per-shard draws, concatenated), and the result equals
+    ``sharded_lookup(compact=False)`` from those origins."""
     l = targets.shape[0]
     eng = engine if engine is not None \
         else ResidentServeEngine(swarm, cfg, slots=l, admit_cap=l,
@@ -1819,7 +1911,9 @@ def serve_resident(engine: ResidentServeEngine, arrival_ts, keys,
     takes the policies ``shed`` and ``queue``; ``degrade`` needs the
     burst engine's host-side probe and raises.  Macro step ``i`` admits
     from ``origins_of(i)`` if given, else from ``generator`` (default
-    seeded 0).  The clock is read at exactly the points the JAX loop
+    seeded 0).  The clock defaults to ``engine.clock`` (over a mesh the
+    ranks' shared reading, so every rank takes the same decisions); it
+    is read at exactly the points the JAX loop
     reads it, so under a deterministic virtual clock the whole report
     (the ``resident`` block included) equals JAX's.
 
@@ -1828,7 +1922,7 @@ def serve_resident(engine: ResidentServeEngine, arrival_ts, keys,
     beside ``request``) and ``layer_walls_s`` (host seconds dispatching,
     blocked in the drain, asleep, and the rest: the host's own work;
     measured outside the clock's reads)."""
-    clock = clock or time.perf_counter
+    clock = clock or engine.clock
     sleep = sleep or time.sleep
     pc = time.perf_counter
     cfg, c = engine.cfg, engine.slots

@@ -149,6 +149,14 @@ class SwarmStore(NamedTuple):
     nsizes: torch.Tensor    # [max_listeners] delivered value size
 
 
+# The leaves holding a row per node; the rest (``notified``, ``nseqs``,
+# ``nvals``, ``npayload``, ``nsizes``) hold a row per listener id.  The
+# sharded store splits the former over the ranks and keeps the latter
+# whole on every rank.
+NODE_LEAVES = ("keys", "vals", "seqs", "created", "used", "cursor", "lkeys",
+               "lids", "lexps", "lcursor", "sizes", "ttls", "payload")
+
+
 class StoreTrace(NamedTuple):
     """Counters of one storage sweep, ``[]`` int32 tensors left on the
     device until :meth:`to_dict` reads them in one transfer:
@@ -649,13 +657,23 @@ def _listen_insert(alive: torch.Tensor, cfg: SwarmConfig, store: SwarmStore,
     """Register ``reg_ids`` for ``keys`` at the found live nodes, in
     place: each node's listener ring takes at most ``listen_slots`` a
     batch; out-of-range ids are dropped."""
-    ls = scfg.listen_slots
     p, q = found.shape
     req_node = _mask_dead_idx(alive, cfg, found.reshape(-1)).to(torch.int64)
     req_key = keys.repeat_interleave(q, dim=0)
     req_id = reg_ids.repeat_interleave(q, dim=0)
     req_node = torch.where((req_id >= 0) & (req_id < scfg.max_listeners),
                            req_node, -1)
+    return _listen_apply(store, scfg, req_node, req_key, req_id, now)
+
+
+def _listen_apply(store: SwarmStore, scfg: StoreConfig,
+                  req_node: torch.Tensor, req_key: torch.Tensor,
+                  req_id: torch.Tensor, now: int) -> SwarmStore:
+    """Write listener requests into ``store``'s tables, in place:
+    ``req_node [M]`` rows of ``store`` (-1 = skip), ``req_key [M,5]``,
+    ``req_id [M]``.  Rows sort by node, stably; each node's ring takes
+    at most ``listen_slots`` of them, from its cursor on."""
+    ls = scfg.listen_slots
     node_sk = torch.where(req_node >= 0, req_node, INT32_MAX)
     perm = torch.sort(node_sk, stable=True).indices
     s_node_sk, s_key = node_sk[perm], req_key[perm]
@@ -663,7 +681,7 @@ def _listen_insert(alive: torch.Tensor, cfg: SwarmConfig, store: SwarmStore,
     live = s_node >= 0
     rank = _segment_rank(s_node_sk, live)
     accept = live & (rank < ls)
-    n_safe = s_node.clamp(0, cfg.n_nodes - 1)
+    n_safe = s_node.clamp(0, store.lcursor.shape[0] - 1)
     slot = ((store.lcursor[n_safe] + rank) & MASK32) % ls
     a = accept.nonzero().squeeze(1)
     nn, ns = s_node[a], slot[a]         # distinct: ranks < ls per node

@@ -40,6 +40,7 @@ killed past it.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import queue as queue_mod
 import shutil
@@ -64,7 +65,11 @@ class Mesh:
     ``backend``, computing on ``device``.  ``shape[AXIS]`` is the size,
     as on a JAX mesh.  ``group`` is a ``torch.distributed`` group (the
     default group if ``None``).  Counters: :attr:`calls` (collectives by
-    name) and :attr:`bytes_sent` (bytes this rank handed each)."""
+    name) and :attr:`bytes_sent` (bytes this rank handed each).  A
+    collective recorded into a CUDA graph under capture runs nothing
+    then and counts into :attr:`captured` / :attr:`captured_bytes`
+    instead; whoever replays the graph adds the capture's counts
+    (:meth:`count_replay`), as the kernel wrappers' counts do."""
 
     def __init__(self, rank: int, size: int, device: torch.device,
                  backend: str, group=None):
@@ -72,6 +77,8 @@ class Mesh:
         self.device, self.backend, self.group = device, backend, group
         self.calls: Counter = Counter()
         self.bytes_sent: Counter = Counter()
+        self.captured: Counter = Counter()
+        self.captured_bytes: Counter = Counter()
 
     @property
     def shape(self) -> dict:
@@ -88,11 +95,23 @@ class Mesh:
         self.bytes_sent.clear()
 
     def _run(self, name: str, fn, out: torch.Tensor, inp: torch.Tensor):
-        """Run collective ``fn(out, inp)`` and count it."""
-        self.calls[name] += 1
-        self.bytes_sent[name] += inp.numel() * inp.element_size()
+        """Run collective ``fn(out, inp)`` and count it (into the capture
+        counters while a CUDA graph is being captured)."""
+        capturing = (inp.device.type == "cuda"
+                     and torch.cuda.is_current_stream_capturing())
+        calls, sent = ((self.captured, self.captured_bytes) if capturing
+                       else (self.calls, self.bytes_sent))
+        calls[name] += 1
+        sent[name] += inp.numel() * inp.element_size()
         fn(out, inp)
         return out
+
+    def count_replay(self, calls: dict, nbytes: dict) -> None:
+        """A replay of a captured graph ran ``calls[name]`` collectives
+        moving ``nbytes[name]`` bytes (the capture counters' difference
+        across its capture)."""
+        self.calls.update(calls)
+        self.bytes_sent.update(nbytes)
 
     def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
         """``[D, ...]`` → ``[D, ...]``: block ``j`` goes to rank ``j``,
@@ -136,6 +155,19 @@ class Mesh:
 
     def barrier(self) -> None:
         self.host_ints([0])
+
+    def host_max(self, value: float) -> float:
+        """The largest of the ranks' host ``value`` s, the same on every
+        rank (one ``all_reduce``): the serve engines' clock.  gloo
+        reduces it on the CPU, so the device stream is never waited on;
+        NCCL, which takes device tensors only, on the card; one rank
+        reduces nothing."""
+        if self.size == 1:
+            return value
+        t = torch.tensor([value], dtype=torch.float64,
+                         device=self.device if self.backend == "nccl"
+                         else "cpu")
+        return float(self.all_reduce(t, "max")[0])
 
     def close(self) -> None:
         if dist.is_initialized():
@@ -192,6 +224,21 @@ def gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     whole tensor, on every rank)."""
     g = mesh.all_gather(x)
     return g.reshape(-1, *x.shape[1:])
+
+
+def gather_many(mesh: Mesh, xs) -> list:
+    """Every rank's rows of each of the ``P(AXIS)`` tensors ``xs`` (rows
+    of equal count), whole on every rank, in one ``all_gather``: they
+    cross packed side by side as int64 columns (every dtype here widens
+    exactly) and come back in their own dtypes and shapes."""
+    flat = gather_rows(mesh, torch.cat(
+        [x.reshape(x.shape[0], -1).to(torch.int64) for x in xs], dim=1))
+    out, c = [], 0
+    for x in xs:
+        w = math.prod(x.shape[1:])
+        out.append(flat[:, c:c + w].reshape(-1, *x.shape[1:]).to(x.dtype))
+        c += w
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -76,7 +76,7 @@ from ..models.swarm import (
 from ..ops.round_parts import unpack_pair_window
 from ..ops.u32 import U32_MAX, as_i32, prefix_len32, shl32
 from ..ops.xor_metric import merge_ladder_widths, pick_merge_width
-from .mesh import Mesh, shard_rows
+from .mesh import Mesh, gather_many, shard_rows
 
 
 def _check_shard(swarm: Swarm, cfg: SwarmConfig, mesh: Mesh) -> None:
@@ -167,9 +167,7 @@ def _fill_buckets(payload: torch.Tensor, src: torch.Tensor, n_shards: int,
     (empty slots read ``fill``)."""
     q = payload.shape[0]
     srcf = src.reshape(-1).clamp(0, max(q - 1, 0))
-    rows = torch.where((src >= 0).reshape(-1, 1), payload[srcf],
-                       torch.as_tensor(fill, dtype=payload.dtype,
-                                       device=payload.device))
+    rows = torch.where((src >= 0).reshape(-1, 1), payload[srcf], fill)
     return rows.reshape(n_shards, cap, payload.shape[1])
 
 
@@ -593,6 +591,140 @@ def sharded_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
     return LookupResult(found=_scatter_rows(found, local),
                         hops=_scatter_rows(full.hops, local),
                         done=_scatter_rows(full.done, local))
+
+
+# ---------------------------------------------------------------------------
+# the mesh resident macro step
+# ---------------------------------------------------------------------------
+
+def gather_seeded(mesh: Mesh, new: LookupState) -> LookupState:
+    """Every rank's rows of a routed init (``targets``, ``idx``, ``dist``,
+    ``queried``), whole on every rank: one ``all_gather``."""
+    return new._replace(**dict(zip(LookupState._fields,
+                                   gather_many(mesh, new[:4]))))
+
+
+def _resident_rounds_routed(mesh: Mesh, swarm: Swarm, cfg: SwarmConfig,
+                            st: LookupState, rnd0, rounds: int,
+                            capacity_factor: float, gated: bool):
+    """Up to ``rounds`` routed rounds (round ``rnd0 + it``) on this rank's
+    rows, stopping once no rank has a pending row — JAX's
+    psum-synchronised ``while_loop``.  Each trip's mesh pending count is
+    an ``all_reduce``: read on the host in the early-exit form
+    (``gated=False``), kept on the device in the gated form, which runs
+    every trip and keeps the old state where the trip is inactive (the
+    form a CUDA graph captures).  The capacity is provisioned for this
+    call's rows (the burst engine's, so the replay equals
+    ``sharded_lookup(compact=False)``).  Returns ``(state, rounds_run,
+    xchg_round_rows)``: the trips run, and the mesh's pending rows × α
+    summed over them (the exchange's provisioned solicitation rows)."""
+    dev = st.done.device
+    alpha = cfg.alpha
+
+    def pending(s):
+        return mesh.all_reduce((~s.done).sum().to(torch.int32), "sum")
+
+    if not gated:
+        it = xr = 0
+        while it < rounds:
+            n_pend = int(pending(st))
+            if n_pend == 0:
+                break
+            st = sharded_lookup_step(swarm, cfg, st, mesh, capacity_factor,
+                                     rnd=rnd0 + it)
+            xr += n_pend * alpha
+            it += 1
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+        return st, i32(it), i32(xr)
+    run = torch.zeros((), dtype=torch.int32, device=dev)
+    xr = torch.zeros((), dtype=torch.int32, device=dev)
+    for it in range(rounds):
+        n_pend = pending(st)
+        active = n_pend > 0
+        new = sharded_lookup_step(swarm, cfg, st, mesh, capacity_factor,
+                                  rnd=rnd0 + it)
+        st = LookupState(*[o if n is o else torch.where(active, n, o)
+                           for n, o in zip(new, st)])
+        run = run + active.to(torch.int32)
+        xr = xr + n_pend * alpha
+    return st, run, xr
+
+
+def _sharded_resident_step(mesh: Mesh, swarm: Swarm, cfg: SwarmConfig,
+                           st: LookupState, rings, cache, keys: torch.Tensor,
+                           reqs: torch.Tensor, cls: torch.Tensor,
+                           origins: torch.Tensor, n_new, rnd0,
+                           capacity_factor: float, rounds: int,
+                           expire: bool = True, gated: bool = False,
+                           exchange: dict | None = None):
+    """The mesh resident macro step: enqueue → pop → the replicated cache
+    probe → the MASKED routed init → the slot scatter → the routed round
+    loop → the shared harvest tail.
+
+    Layout: every rank holds the ``[C]`` serve state, the rings and the
+    cache whole, the same on every rank (JAX treats them as global
+    outside its ``shard_map``: the pop reads every slot's free mask, the
+    scatter takes global slots, the tail fills the replicated cache).
+    The routed init seeds this rank's rows ``[r·A/D, (r+1)·A/D)`` of the
+    popped batch from ``origins`` (the whole ``[A]`` batch's, JAX's
+    per-shard draws concatenated) — hit and padding rows never ride the
+    ``all_to_all`` — and one ``all_gather`` makes the seeded rows whole;
+    the round loop runs on this rank's slots ``[r·C/D, (r+1)·C/D)``
+    (:func:`_resident_rounds_routed`) and one ``all_gather`` makes the
+    state whole again.  Every round is the burst path's routed round at
+    the same round index, so the replay equals
+    ``sharded_lookup(compact=False)``.  Returns ``(st, rings, cache,
+    ResidentOut)`` with ``rung_counts = [0]`` and the exchange counters
+    ``xchg_init_rows`` (rows admitted) and ``xchg_round_rows``.
+    ``exchange`` receives the solicitations this rank's rows shipped on
+    the init ``all_to_all`` (``attempted``, a device scalar), counted
+    in the exchange itself."""
+    from ..models import serve as sv
+    c = st.done.shape[0]
+    a = keys.shape[0]
+    dev = st.done.device
+    rings = sv._ring_enqueue(rings, keys, reqs, cls, n_new)
+    rings, pkeys, preq, pcls, cand, valid = sv._ring_pop(st, rings, a)
+    if cache is not None:
+        hit_raw, h_found, h_hops = sv._probe_impl(cache, pkeys)
+        hit = hit_raw & valid
+    else:
+        hit = torch.zeros((a,), dtype=torch.bool, device=dev)
+        h_found = torch.full((a, cfg.quorum), -1, dtype=torch.int32,
+                             device=dev)
+        h_hops = torch.zeros((a,), dtype=torch.int32, device=dev)
+    take = valid & ~hit
+    new = gather_seeded(mesh, sharded_lookup_init(
+        swarm, cfg, shard_rows(mesh, pkeys), mesh, shard_rows(mesh, origins),
+        skip=shard_rows(mesh, ~take), exchange=exchange))
+    eff = torch.where(take, cand, c)
+    st = sv._scatter_rows_into(st, new, eff, rnd0)
+    rings = rings._replace(slot_req=sv._set_rows(rings.slot_req, eff, preq),
+                           slot_cls=sv._set_rows(rings.slot_cls, eff, pcls))
+    mine = LookupState(*[shard_rows(mesh, x) for x in st])
+    mine, rounds_run, xchg_round = _resident_rounds_routed(
+        mesh, swarm, cfg, mine, rnd0, rounds, capacity_factor, gated)
+    st = LookupState(*gather_many(mesh, mine))
+    st, cache, comp, fin = sv._resident_tail(swarm.ids, cfg, st, cache,
+                                             rnd0 + rounds, expire)
+    adm = take.sum().to(torch.int32)
+    out = sv.ResidentOut(
+        adm=adm, hits=hit.sum().to(torch.int32),
+        queued=rings.tail - rings.head, head=rings.head, tail=rings.tail,
+        shed=rings.shed, rounds_run=rounds_run, hit=hit,
+        hit_req=torch.where(hit, preq, -1), hit_found=h_found,
+        hit_hops=h_hops, comp=comp,
+        comp_req=torch.where(comp, rings.slot_req, -1),
+        comp_cls=torch.where(comp, rings.slot_cls, -1),
+        comp_hops=st.hops, comp_adm=st.admitted_round,
+        comp_com=st.completed_round, comp_found=fin,
+        rung_counts=torch.zeros((1,), dtype=torch.int32, device=dev),
+        xchg_init_rows=adm, xchg_round_rows=xchg_round)
+    st = st._replace(admitted_round=torch.where(comp, -1, st.admitted_round))
+    rings = rings._replace(
+        slot_req=torch.where(comp, -1, rings.slot_req),
+        slot_cls=torch.where(comp, -1, rings.slot_cls))
+    return st, rings, cache, out
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """The resident engine's CUDA graphs on the card: a captured macro step
 equals the eager body step for step (the output, state, rings and
 cache), on the K1 and the fused engine, and the closed-loop replay
-through a graph equals ``lookup``.  Every test needs a CUDA card and
+through a graph equals ``lookup``; the mesh resident engine on one rank
+over NCCL captures its macro step, collectives included, equal to the
+eager body, and its replay equals ``sharded_lookup(compact=False)``.  Every test needs a CUDA card and
 skips without one; none imports JAX (run them on the card with
 ``--noconftest``)."""
 
@@ -101,3 +103,69 @@ def test_graph_replay_equals_lookup(impl):
     assert _same(res, look)
     assert np.array_equal(out.comp_req, np.arange(512))
     assert int(out.rounds_run) <= cfg.max_steps and bool(res.done.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_slots", [0, 128])
+def test_sharded_resident_graph_equals_eager(cache_slots, tmp_path):
+    """The mesh resident engine on one rank over NCCL: its macro step is
+    one captured graph, collectives included, and equals the eager
+    early-exit body step for step; a replay counts its capture's
+    collectives; the replay through the graph equals
+    ``sharded_lookup(compact=False)``."""
+    from opendht_tpu_torch.parallel import mesh as pm
+    from opendht_tpu_torch.parallel import sharded as ps
+    dev = _need_card()
+    cfg, swarm = _swarm(dev)
+    mesh = pm.make_mesh(1, 0, backend="nccl", device=dev,
+                        init_method="file://" + str(tmp_path / "store"),
+                        timeout=60.0)
+    try:
+        eng = sv.ShardedResidentServeEngine(swarm, cfg, SLOTS, mesh,
+                                            admit_cap=ADMIT,
+                                            cache_slots=cache_slots)
+        assert eng.graph
+        st, rings = eng.empty(), eng.empty_rings()
+        e_st, e_rings = eng.empty(), eng.empty_rings()
+        e_cache = (None if eng.cache is None
+                   else type(eng.cache)(*[x.clone() for x in eng.cache]))
+        gen = torch.Generator().manual_seed(3)
+        pool = torch.randint(0, 2**32, (32, 5), generator=gen)
+        eng.warm_resident()
+        mesh.reset_counters()
+        for step, n_new in enumerate([64, 64, 40, 0, 64, 0]):
+            keys = pool[torch.randint(0, 32, (ADMIT,), generator=gen)]
+            reqs = torch.arange(step * ADMIT, (step + 1) * ADMIT,
+                                dtype=torch.int32)
+            cls = torch.zeros(ADMIT, dtype=torch.int32)
+            og = torch.randint(0, N_NODES, (ADMIT,), generator=gen,
+                               dtype=torch.int32)
+            st, rings, out = eng.macro_step(st, rings, keys.numpy(),
+                                            reqs.numpy(), cls.numpy(),
+                                            og.numpy(), n_new, 2 * step)
+            o = eng.read_out(out)
+            e_st, e_rings, e_cache, e_out = ps._sharded_resident_step(
+                mesh, swarm, cfg, e_st, e_rings, e_cache, keys.to(dev),
+                reqs.to(dev), cls.to(dev), og.to(dev), n_new, 2 * step,
+                eng.capacity_factor, eng.rounds_per_iter)
+            assert _same(o, [x.cpu().numpy() for x in e_out]), step
+            assert _same(st, e_st) and _same(rings, e_rings), step
+            if cache_slots:
+                assert _same(eng.cache, e_cache), step
+        graph = eng.graphs[(bool(cache_slots), eng.rounds_per_iter, True)]
+        assert graph["collectives"]["all_to_all"] > 0
+        assert mesh.calls["all_to_all"] >= 6 * graph["collectives"][
+            "all_to_all"]
+        l = 512
+        g2 = torch.Generator(device=dev).manual_seed(4)
+        tg = torch.randint(0, 2**32, (l, 5), generator=g2, device=dev)
+        og = sw._sample_origins(g2, swarm.alive, l)
+        rep = sv.ShardedResidentServeEngine(swarm, cfg, l, mesh, admit_cap=l,
+                                            ring_slots=2 * l)
+        res, _, out = sv.resident_closed_loop_replay(swarm, cfg, tg,
+                                                     engine=rep, origins=og)
+        look = ps.sharded_lookup(swarm, cfg, tg, mesh, origins=og,
+                                 compact=False)
+        assert _same(res, look) and int(out.xchg_init_rows) == l
+    finally:
+        mesh.close()
