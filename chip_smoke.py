@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's lookup engine, its chaos engine, its storage
 plane with chunked values, its serve engines (burst, and resident: one
-CUDA graph a macro step), its swarm-health monitor, its PHT index, its
-always-on soak engine and its table-sharded engines (ranks over
-``torch.distributed``) on one CUDA card and hold each of its CUDA
-kernels against its plain PyTorch version.
+CUDA graph a macro step), its swarm-health monitor, its PHT index (and
+the host ``Pht`` over ``StoreDht``), its always-on soak engine, its
+table-sharded engines (ranks over ``torch.distributed``), its cost
+ledger and its metrics planes on one CUDA card and hold each of its
+CUDA kernels against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with one NVIDIA card and
 the CUDA toolkit:
@@ -202,7 +203,30 @@ Phases (any failure exits non-zero and prints no result line):
    4, fresh_ttl 2, stale threshold 0.25, miss limit 2, kill 0.05 a sweep
    + heal), depth 22 (sweep 0 crawls 4,194,304 buckets), K1 engine —
    each sweep's identities, the lag bound, done 1.0; coverage, lag,
-   freshness, hop fidelity and density.
+   freshness, hop fidelity and density; every sweep published through a
+   ``SwarmHealthPlane`` whose counters equal the records;
+20. the cost ledger, the metrics planes and the host index: right after
+   the kernel build a child process (this script with
+   ``--store-dht-child``) inserts 256 of the index cell's drawn entries
+   through the host ``Pht`` over ``StoreDht`` at 1M nodes, its trie
+   equal to a ``DeviceIndex``'s, while phases 3-4's CPU comparisons run
+   (``store_dht_inserts``; joined before the main path); after
+   ``layers_ms`` ``ledger_path``: one ``CostLedger.instrument(
+   barrier=True)`` replay of the main path's K1 lookup and its recall
+   check (equal to the untimed ones) and ``measure_round_phases`` at
+   full width (rows telescoping to the round, within ±10 % of
+   ``lookup_step``), ``attr_compile_count`` 0, the memory plane's peak
+   = ``max_memory_allocated``, ``check_ledger_obj``'s rules, the
+   registry export; after the storage path ``repub_profile``
+   (``bench.py --mode repub-profile``'s defaults: the rows summing to
+   the sweep wall); in ``sharded_path`` the instrumented routed replay
+   (``sharded_ledger``); after ``index_path`` 64 host lookups over
+   ``StoreDht.over`` the index cell, each exact against the oracle
+   (``store_dht_lookups``); and the planes on legs that already run: a
+   ``LatencyPlane`` by op and a ``SoakPlane`` on both read-heavy soak
+   arms, a ``LatencyPlane`` by class, the hop histogram and the
+   ``ResidentPlane`` on the resident K1 leg, each held against its
+   report.
 
 Prints the ``ptxas`` lines of every kernel (registers, shared memory,
 spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
@@ -215,8 +239,9 @@ spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
 ``sharded_card_vs_cpu``, ``sharded_path``, ``sharded_ranks``,
 ``sharded_chaos``, ``sharded_serve``, ``sharded_slice10_card_vs_cpu``,
 ``sharded_resident_replay``, ``sharded_resident_leg``,
-``sharded_storage_path``, ``sharded_storage_ranks``, ``monitor_sweep`` and
-``monitor_path`` lines, ``elapsed`` lines between phases, a ``kernels``
+``sharded_storage_path``, ``sharded_storage_ranks``, ``monitor_sweep``,
+``monitor_path``, ``store_dht_inserts``, ``ledger_path``,
+``repub_profile``, ``sharded_ledger`` and ``store_dht_lookups`` lines, ``elapsed`` lines between phases, a ``kernels``
 JSON line (each row with its
 launches on every path — a graph replay counts the kernels its capture
 recorded — K1's and K2's with their times at the serve shape), the card
@@ -2471,6 +2496,54 @@ def profile_engine(sv, eng, sched, top: int = 10) -> dict:
             "top_kernels_ms": [[n[:90], ms] for n, ms in ranked]}
 
 
+def serve_planes(rep, cfg, failures) -> dict:
+    """A resident run published as ``bench.py --mode serve`` publishes
+    it: a ``LatencyPlane("dht_serve_request", klass)`` at the 250 ms
+    SLO, the hop histogram (``publish_hop_histogram``) and the
+    ``ResidentPlane``; held against the report (count = completions,
+    violation ratio = the share of latencies above the target, the
+    resident counters = the report's)."""
+    import numpy as np
+    from opendht_tpu_torch.obs.latency import (LatencyPlane,
+                                               publish_hop_histogram)
+    from opendht_tpu_torch.obs.timeline import ResidentPlane
+    from opendht_tpu_torch.utils.metrics import MetricsRegistry
+    reg = MetricsRegistry()
+    plane = LatencyPlane(reg, "dht_serve_request", ("klass",),
+                         slo_target_s=0.25)
+    lat = np.asarray(rep["latency_s"])
+    for sec, k in zip(lat, rep["klass"]):
+        plane.observe(float(sec), klass=str(k))
+    hops = publish_hop_histogram(reg, np.bincount(
+        np.clip(rep["hops"], 0, cfg.max_steps), minlength=cfg.max_steps + 1))
+    ResidentPlane(reg).publish_run(rep)
+    r = rep["resident"]
+    n_obs = sum(c for _k, (_b, _s, c) in plane.hist.snapshot())
+    classes = sorted(set(map(str, rep["klass"])))
+    out = {"latency_count": n_obs, "completed": rep["completed"],
+           "slo_violation_ratio": plane.violation_ratio,
+           "slo_error_budget_burn_rate": plane.burn_rate,
+           "per_class": {k: {"p50_s": plane.quantile(0.5, klass=k),
+                             "p99_s": plane.quantile(0.99, klass=k)}
+                         for k in classes},
+           "hop_p50": hops.quantile(0.5),
+           "macro_iterations_total": reg.get(
+               "dht_resident_macro_iterations_total").get(),
+           "device_rounds_total": reg.get(
+               "dht_resident_device_rounds_total").get()}
+    share = float(np.mean(lat > 0.25)) if lat.size else 0.0
+    ok = (n_obs == rep["completed"] == lat.size
+          and plane.violation_ratio == share
+          and out["macro_iterations_total"] == r["iterations"]
+          and out["device_rounds_total"] == r["device_rounds"]
+          and sum(c for _k, (_b, _s, c) in hops.snapshot())
+          == rep["completed"])
+    if not ok:
+        failures.append(f"resident planes differ from the report: {out}, "
+                        f"violation share {share}")
+    return out
+
+
 def phase_resident_full(sw, swarm, cfg, targets, origins, res, card,
                         failures, burst_legs, burst_profiles):
     """The resident path on the main swarm: ``resident_closed_loop_replay``
@@ -2637,6 +2710,8 @@ def phase_resident_full(sw, swarm, cfg, targets, origins, res, card,
             if out["recall_at_8"] < 0.99:
                 failures.append(f"resident leg {name}: recall@8 "
                                 f"{out['recall_at_8']}")
+        if name == "k1_engine":
+            out["planes"] = serve_planes(rep, c, failures)
         legs[name] = out
         log("resident_leg " + json.dumps({"leg": name, **out, "card": card}))
         del eng
@@ -2713,12 +2788,15 @@ def phase_monitor_full(sw, swarm, cfg, card, failures):
     from opendht_tpu_torch.models import monitor as mon
     from opendht_tpu_torch.obs import health
     from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.utils.metrics import MetricsRegistry
 
     dev = swarm.ids.device
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    registry = MetricsRegistry()
+    plane = health.SwarmHealthPlane(registry)
     mcfg = mon.MonitorConfig.for_nodes(N_NODES, period=4, fresh_ttl=2,
                                        stale_threshold=0.25, miss_limit=2)
     eng = mon.MonitorEngine(swarm, cfg, mcfg)
@@ -2738,6 +2816,7 @@ def phase_monitor_full(sw, swarm, cfg, card, failures):
         rec["wall_s"] = time.perf_counter() - t1
         rec["churn_heal_s"] = t1 - t0
         walls.append(rec["wall_s"])
+        plane.publish_sweep(rec)
         log("monitor_sweep " + json.dumps(rec))
         ok = (rec["tracked_alive"] == prev_alive + rec["newly_discovered"]
               + rec["resurrected"] - rec["newly_dead"]
@@ -2758,7 +2837,33 @@ def phase_monitor_full(sw, swarm, cfg, card, failures):
                               bucket_k=cfg.bucket_k, alpha=cfg.alpha,
                               quorum=cfg.quorum)
     dens = health.poisson_density_profile(eng.bucket_counts[0])
+    plane.publish_density(eng.bucket_counts[-1])
+    recs = eng.records
+    gauge = lambda name, **lb: registry.get(  # noqa: E731
+        f"dht_swarm_{name}").get(**lb)
+    plane_out = {
+        "sweeps_total": gauge("sweeps_total"),
+        "lookups_total": gauge("lookups_total"),
+        "nodes_seen_total": gauge("nodes_seen_total"),
+        "deaths_detected_total": gauge("deaths_detected_total"),
+        "coverage_ratio": gauge("coverage_ratio"),
+        "freshness_age_p99": gauge("freshness_age_sweeps", q="p99"),
+        "density_poisson_tv": gauge("density_poisson_tv"),
+        "series_lines": sum(1 for ln in registry.render_prometheus(
+        ).splitlines() if ln and not ln.startswith("#"))}
+    plane_ok = (plane_out["sweeps_total"] == len(recs)
+                and plane_out["lookups_total"] == sum(r["lookups"]
+                                                      for r in recs)
+                and plane_out["nodes_seen_total"] == sum(r["nodes_seen"]
+                                                         for r in recs)
+                and plane_out["deaths_detected_total"] == sum(
+                    r["lag_count"] for r in recs)
+                and plane_out["coverage_ratio"] == recs[-1]["coverage"])
+    if not plane_ok:
+        failures.append(f"monitor: the health plane's counters differ from "
+                        f"the sweep records: {plane_out}")
     log("monitor_path " + json.dumps({
+        "health_plane": plane_out,
         "n_nodes": N_NODES, "depth": mcfg.depth, "buckets": eng.n_buckets,
         "sweeps": MONITOR_SWEEPS, "detection_lag_bound": bound_,
         **summary, "lookups_per_sweep": [r["lookups"] for r in eng.records],
@@ -2854,6 +2959,16 @@ def index_entries(ranks_n, entries, zipf, seed=7):
 def scan_key(rank):
     import struct
     return {"k": struct.pack(">I", int(rank))}
+
+
+def index_swarm(dev):
+    """The index cell's 1M-node swarm (seed 0), config, spec and store
+    geometry."""
+    import torch
+    from opendht_tpu_torch.models import swarm as sw
+    cfg = sw.SwarmConfig.for_nodes(INDEX_NODES)
+    swarm = sw.build_swarm(cfg, torch.Generator(device=dev).manual_seed(0))
+    return (cfg, swarm, *index_geometry())
 
 
 def index_geometry():
@@ -3068,8 +3183,10 @@ def phase_index_full(card, failures):
     10M × 24 × 9 payload words pass the 2^31 flat-index limit both
     packages' ``validate_store_geometry`` holds).  Exact recall, the
     oracle's occupancy, ``n_leaves == 1 + split_levels``, entries
-    conserved and the walk within its bound are asserted.  Returns the
-    path's launch counts."""
+    conserved and the walk within its bound are asserted.  Then host
+    ``Pht`` lookups over ``StoreDht.over`` the built index
+    (``store_dht_lookups``).  Returns the path's launch counts and the
+    lookups'."""
     import numpy as np
     import torch
     from opendht_tpu_torch.models import index as ix
@@ -3083,9 +3200,7 @@ def phase_index_full(card, failures):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t_phase = time.perf_counter()
-    cfg = sw.SwarmConfig.for_nodes(INDEX_NODES)
-    swarm = sw.build_swarm(cfg, torch.Generator(device=dev).manual_seed(0))
-    spec, iscfg = index_geometry()
+    cfg, swarm, spec, iscfg = index_swarm(dev)
     keys, ehash, evid, rng, p = index_entries(INDEX_RANKS, INDEX_ENTRIES, 1.2)
     x = ix.DeviceIndex(swarm, cfg, st.empty_store(INDEX_NODES, iscfg, dev),
                        iscfg, spec, seed=3, device=dev)
@@ -3165,7 +3280,7 @@ def phase_index_full(card, failures):
                         "identity or the walk bound fails")
     if launches["merge_round"] <= 0 or launches["fused_round"] <= 0:
         failures.append("K1 or K2 was not launched on the index path")
-    return launches
+    return launches, store_dht_lookups(x, orc, keys, card, failures)
 
 
 def soak_stats(rep, tline) -> dict:
@@ -3190,6 +3305,45 @@ def soak_stats(rep, tline) -> dict:
         "repub_sweeps": rep["repub_sweeps"],
         "monitor_sweeps": len(rep["monitor_sweeps"]),
         "maint_ops": len(rep["maint_ops"])}
+
+
+def soak_planes(registry, lat_plane, rep, tline, failures, what) -> dict:
+    """A soak arm's ``LatencyPlane`` (observed by the loop) and its
+    timeline published through a ``SoakPlane``, held against the report:
+    the histogram counts the report's completions, the violation ratio
+    is the share of its latencies above the target, the sweep counters
+    count its sweep records closed inside the loop (a sweep still open
+    when the schedule drains is closed after it, at ``elapsed_s``, and
+    the timeline does not book it — in both packages)."""
+    import numpy as np
+    from opendht_tpu_torch.obs.timeline import SoakPlane
+    soak_plane = SoakPlane(registry)
+    for row in tline.rows:
+        soak_plane.publish_interval(row)
+    n_obs = sum(c for _k, (_b, _s, c) in lat_plane.hist.snapshot())
+    lat = np.asarray(rep["latency_s"])
+    share = float(np.mean(lat > lat_plane.slo_target_s)) if lat.size else 0.0
+    sweeps = registry.get("dht_soak_sweeps_total")
+    out = {"latency_count": n_obs, "completed": rep["completed"],
+           "slo_violation_ratio": lat_plane.violation_ratio,
+           "slo_error_budget_burn_rate": lat_plane.burn_rate,
+           "latency_p50_s": {op: lat_plane.quantile(0.5, op=op)
+                             for op in ("read", "write")},
+           "latency_p99_s": {op: lat_plane.quantile(0.99, op=op)
+                             for op in ("read", "write")},
+           "sweeps_total": {k: sweeps.get(kind=k)
+                            for k in ("repub", "monitor")}}
+    end = round(rep["elapsed_s"], 4)
+    in_loop = {k: sum(r["finished_t"] != end for r in rep[f"{k}_sweeps"])
+               for k in ("repub", "monitor")}
+    out["sweep_records_in_loop"] = in_loop
+    ok = (n_obs == rep["completed"] == lat.size
+          and lat_plane.violation_ratio == share
+          and out["sweeps_total"] == in_loop)
+    if not ok:
+        failures.append(f"soak leg {what}: a plane differs from the report: "
+                        f"{out}, violation share {share}")
+    return out
 
 
 def monitor_ok(records, bound) -> bool:
@@ -3335,7 +3489,9 @@ def phase_soak_full(cfg, card, failures):
     from opendht_tpu_torch.models import storage as st
     from opendht_tpu_torch.models import swarm as sw
     from opendht_tpu_torch.obs import timeline as tl
+    from opendht_tpu_torch.obs.latency import LatencyPlane
     from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.utils.metrics import MetricsRegistry
 
     dev = torch.device("cuda", 0)
     torch.cuda.synchronize()
@@ -3372,13 +3528,15 @@ def phase_soak_full(cfg, card, failures):
                                write_frac=0.05, scan_frac=scan, scan_span=64,
                                chunk_frac=chunk)
 
-    def run(soak, sched, maint, timeline=None, on_event=None):
+    def run(soak, sched, maint, timeline=None, on_event=None,
+            latency_plane=None):
         ts_, kk, klass, ops, lo, hi = sched
         return sk.soak_open_loop(
             soak, ts_, kk, torch.Generator(device=dev).manual_seed(3),
             klass=klass, ops=ops, scan_lo=lo, scan_hi=hi, burst=2,
             duration=SOAK_SECONDS, maintenance=maint, scenario=scen,
-            timeline=timeline, on_event=on_event)
+            timeline=timeline, on_event=on_event,
+            latency_plane=latency_plane)
 
     def counted(fn):
         """``fn()`` and the launches it made, counted from 0."""
@@ -3409,9 +3567,15 @@ def phase_soak_full(cfg, card, failures):
                 o["c"], maint, o.get("chunk", False), o.get("scan", False)))
             epochs = [(-np.inf, "start", soak.swarm.alive.clone())]
             tline = tl.SoakTimeline(0.5, SOAK_SLOTS, slo_target_s=0.25)
+            # bench.py --mode soak's planes, on the read-heavy arms.
+            registry = MetricsRegistry()
+            lat_plane = (LatencyPlane(registry, "dht_soak_request", ("op",),
+                                      slo_target_s=0.25)
+                         if name == "read-heavy" else None)
             (rep, n_sync), l_run = counted(lambda: count_syncs(lambda: run(
                 soak, sched, maint, tline, lambda ev, now: epochs.append(
-                    (now, ev.kind, soak.swarm.alive.clone())))))
+                    (now, ev.kind, soak.swarm.alive.clone())),
+                latency_plane=lat_plane)))
             timelines[(name, arm_name)] = tline.to_obj()
             (ans, empty_out, n_rec), l_check = counted(
                 lambda: served_recall(soak, rep, sched, epochs, outage))
@@ -3444,6 +3608,9 @@ def phase_soak_full(cfg, card, failures):
                    "launches_recall": l_check,
                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                    "leg_s": time.perf_counter() - t_leg, "card": card}
+            if lat_plane is not None:
+                out["planes"] = soak_planes(registry, lat_plane, rep, tline,
+                                            failures, f"{name} ({arm_name})")
             log("soak_leg " + json.dumps(out))
             mon_ok = monitor_ok(mrec, bound_)
             ok = (all(d["admitted"] == d["completed"] + d["expired"]
@@ -3737,6 +3904,7 @@ def phase_sharded_path(sw, swarm, cfg, targets, origins, card, failures):
             "collectives": calls, "launches": launches,
             "peak_memory_bytes": peak, "card": card}
         log("sharded_path " + json.dumps(out))
+        sharded_ledger(ps, routed_cf2, res["routed_cf2"], card, failures)
         if not all(same.values()):
             failures.append(f"sharded path differs from the local engine: "
                             f"{same}")
@@ -3748,6 +3916,32 @@ def phase_sharded_path(sw, swarm, cfg, targets, origins, card, failures):
         return launches
     finally:
         mesh.close()
+
+
+def sharded_ledger(ps, routed, want, card, failures) -> None:
+    """One ``CostLedger.instrument(barrier=True)`` replay of the routed
+    cf=2.0 lookup at D=1 (``bench.py --mode sharded``'s ledger pass):
+    the routed round's wall by row, equal results."""
+    import torch
+    from opendht_tpu_torch.obs import ledger as lg
+    led = lg.CostLedger()
+    torch.cuda.synchronize()
+    with led.instrument(barrier=True):
+        got = routed()
+    torch.cuda.synchronize()
+    led.sample_hbm()
+    obj = led.to_dict()
+    rows = ledger_rows(obj)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log("sharded_ledger " + json.dumps({
+        "rows": rows, "equal_to_unledgered": same, "hbm": obj["hbm"],
+        "card": card}))
+    missing = [n for n in ("sharded.sharded_lookup_init",
+                           "sharded.sharded_lookup_step")
+               if rows.get(n, {}).get("calls", 0) <= 0]
+    if not same or missing:
+        failures.append(f"sharded ledger: equal {same}, rows not reached "
+                        f"{missing}")
 
 
 def _rank_swarm(mesh, n_nodes, seed, kill=0.0, byz=0.0):
@@ -5132,6 +5326,463 @@ def phase_sharded_storage_ranks(card, failures):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the cost ledger, the repub profile and the host index over StoreDht
+# ---------------------------------------------------------------------------
+
+LEDGER_SUM_TOL = 0.10           # tools/check_trace.py's LEDGER_SUM_TOL
+LEDGER_SUM_ABS_TOL_S = 0.005    # and LEDGER_SUM_ABS_TOL_S
+LEDGER_PHASE_REPEATS = 3        # measure_round_phases' timed repeats
+REPUB_NODES = 65_536            # bench.py --mode repub-profile: --nodes
+REPUB_PUTS = 100_000            # --puts (capped at N·slots/16)
+REPUB_PAIRS = 7                 # timed and attribution sweeps, alternating
+                                # (the bench: --repeat 3 timed, then 1)
+REPUB_KILL = 0.5                # --kill-frac
+STORE_DHT_ENTRIES = 256         # host Pht inserts over StoreDht
+STORE_DHT_LOOKUPS = 64          # host lookups of distinct ranks
+
+
+def _phase_rows_violations(rows, total, what, errs, neg_frac=0.0) -> None:
+    """``check_trace._check_phase_rows``, restated: numeric rows above
+    the noise floor that sum to ``total`` within ±10 % (or 5 ms)."""
+    if not rows:
+        errs.append(f"{what}: no rows")
+        return
+    num = lambda v: isinstance(v, (int, float)) and v == v  # noqa: E731
+    tot = float(total) if num(total) else 0.0
+    floor = -(neg_frac * max(tot, 0.0) + (1e-3 if neg_frac else 0.0))
+    for row in rows:
+        if not num(row.get("wall_s")):
+            errs.append(f"{what} row {row.get('phase')!r}: wall_s")
+            return
+        if row["wall_s"] < floor:
+            errs.append(f"{what} row {row['phase']!r} below the floor")
+        for f in ("flops", "bytes_accessed"):
+            v = row.get(f)
+            if v is not None and (not num(v) or v < 0):
+                errs.append(f"{what} row {row['phase']!r}: {f} {v!r}")
+    if not (num(total) and total > 0):
+        errs.append(f"{what}: target wall missing ({total!r})")
+        return
+    s = sum(r["wall_s"] for r in rows)
+    if abs(s - total) > max(LEDGER_SUM_TOL * total, LEDGER_SUM_ABS_TOL_S):
+        errs.append(f"{what}: rows sum to {s:.6f} s against {total:.6f} s")
+
+
+def ledger_violations(obj: dict) -> list:
+    """The rules of ``tools/check_trace.py``'s ``check_ledger_obj``,
+    restated here because this machine has no JAX package (the CPU
+    tests run JAX's checker on the port's artifacts): the top-level
+    fields; peak ≥ live memory; every row called, non-negative walls,
+    FLOPs and bytes; the phase table's rows within ±10 % of its round
+    wall (the bench's p50, else the independently timed
+    ``lookup_step``) and prefix-equivalent; the repub rows within ±10 %
+    of the sweep wall; something to gate; a compile count of 0."""
+    errs = [f"missing {f!r}" for f in ("platform", "hbm", "kernels")
+            if f not in obj]
+    if errs:
+        return errs
+    hbm = obj["hbm"]
+    if not (hbm["live_bytes"] >= 0 and hbm["peak_bytes"] >= hbm["live_bytes"]):
+        errs.append(f"hbm {hbm}: peak below live")
+    if not obj["kernels"]:
+        errs.append("no kernel rows")
+    for k in obj["kernels"]:
+        if k["calls"] < 1 or k["wall_s"] < 0 or any(
+                k[f] is not None and k[f] < 0
+                for f in ("flops", "bytes_accessed")):
+            errs.append(f"kernel row {k['name']!r} invalid")
+    rp, repub = obj.get("round_phases"), obj.get("repub_profile")
+    if rp is not None:
+        target = (rp.get("round_wall_p50")
+                  or (obj.get("bench") or {}).get("round_wall_p50")
+                  or rp.get("lookup_step_wall_s"))
+        _phase_rows_violations(rp.get("rows"), target, "round_phases", errs,
+                               neg_frac=0.05)
+        if not rp.get("prefix_equivalent"):
+            errs.append("round_phases: not prefix-equivalent")
+    if repub is not None:
+        _phase_rows_violations(repub.get("rows"), repub.get("sweep_wall_s"),
+                               "repub_profile", errs)
+    if rp is None and repub is None:
+        errs.append("nothing to gate")
+    if obj.get("attr_compile_count") not in (None, 0):
+        errs.append(f"attr_compile_count {obj['attr_compile_count']}")
+    return errs
+
+
+def ledger_rows(obj: dict) -> dict:
+    return {k["name"]: {"calls": k["calls"], "wall_s": k["wall_s"],
+                        "wall_mean_s": k["wall_mean_s"],
+                        "donated": k["donated"]} for k in obj["kernels"]}
+
+
+def ledger_gauges(led) -> dict:
+    """The ledger exported into a fresh registry: each rendered
+    ``dht_ledger_*`` family and its number of series lines."""
+    from opendht_tpu_torch.utils.metrics import MetricsRegistry
+    reg = MetricsRegistry()
+    led.export_metrics(reg)
+    counts: dict = {}
+    for line in reg.render_prometheus().splitlines():
+        if line.startswith("# TYPE "):
+            counts[line.split()[2]] = 0
+        elif line and not line.startswith("#"):
+            fam = next((f for f in counts if line.startswith(f)), None)
+            if fam is not None:
+                counts[fam] += 1
+    return counts
+
+
+def phase_ledger_path(sw, swarm, cfg, targets, origins, res, truth, card,
+                      failures):
+    """The cost ledger on the main path: one ``CostLedger.instrument(
+    barrier=True)`` replay of the K1 lookup of the 1,048,576 targets from
+    the main origins (found / hops / done equal to the untimed lookup)
+    and its K3 recall check, then ``measure_round_phases`` at full width
+    from a first-round state — rows that telescope to
+    ``fused_round_wall_s``, prefix-equivalent, their sum within ±10 % of
+    ``lookup_step_wall_s`` — with ``attr_compile_count`` 0, the memory
+    plane's peak = ``torch.cuda.max_memory_allocated()`` at the sample,
+    the rows the main path reaches called, ``check_ledger_obj``'s rules,
+    and the ledger exported into a registry.  Returns its launches."""
+    import torch
+    from opendht_tpu_torch.obs import ledger as lg
+    from opendht_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    led = lg.CostLedger()
+    n0 = lg.step_cache_size()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with led.instrument(barrier=True):
+        r = sw.lookup(swarm, cfg, targets, origins=origins)
+        t2 = sw.true_closest(swarm, cfg, targets[:N_RECALL])
+    torch.cuda.synchronize()
+    replay_launches = dict(kernels.LAUNCHES)
+    same = all(torch.equal(a, b) for a, b in zip(r, res))
+    same_truth = torch.equal(t2, truth)
+    del r, t2
+    phases = lg.measure_round_phases(swarm, cfg, targets, origins=origins,
+                                     repeats=LEDGER_PHASE_REPEATS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    led.round_phases = phases
+    led.attr_compile_count = lg.step_cache_size() - n0
+    wm = led.sample_hbm()
+    peak_now = torch.cuda.max_memory_allocated()
+    obj = json.loads(json.dumps(led.to_dict()))
+    errs = ledger_violations(obj)
+    rows = ledger_rows(obj)
+    reached = ("swarm.lookup_init", "swarm.lookup_step",
+               "swarm._compact_slice", "swarm._writeback_prefix",
+               "swarm._finalize_scattered")
+    missing = [n for n in reached if rows.get(n, {}).get("calls", 0) <= 0]
+    row_sum = sum(r_["wall_s"] for r_ in phases["rows"])
+    out = {
+        "n_nodes": cfg.n_nodes, "n_lookups": int(targets.shape[0]),
+        "equal_to_untimed": same, "recall_truth_equal": same_truth,
+        "rows": rows,
+        "phase_ms": {r_["phase"]: 1e3 * r_["wall_s"] for r_ in phases["rows"]},
+        "fused_round_ms": 1e3 * phases["fused_round_wall_s"],
+        "lookup_step_ms": 1e3 * phases["lookup_step_wall_s"],
+        "rows_sum_over_lookup_step": row_sum / phases["lookup_step_wall_s"],
+        "phase_repeats": phases["repeats"],
+        "hbm": obj["hbm"], "max_memory_allocated": peak_now,
+        "attr_compile_count": obj["attr_compile_count"],
+        "check_ledger_violations": errs, "gauges": ledger_gauges(led),
+        "launches_replay": replay_launches, "launches": launches,
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    log("ledger_path " + json.dumps(out))
+    if not (same and same_truth):
+        failures.append("ledger path: the instrumented replay differs from "
+                        "the untimed lookup or its recall truth")
+    if errs or missing:
+        failures.append(f"ledger path: {errs}, rows not reached {missing}")
+    if wm["peak_bytes"] != peak_now or wm["peak_bytes"] < wm["live_bytes"]:
+        failures.append(f"ledger path: peak {wm} != max_memory_allocated "
+                        f"{peak_now}")
+    if abs(row_sum - phases["fused_round_wall_s"]) > 1e-5 * 6:
+        failures.append("ledger path: the phase rows do not telescope")
+    if replay_launches["merge_round"] <= 0 or \
+            replay_launches["nearest_k_ids"] <= 0:
+        failures.append("ledger path: K1 or K3 not launched in the replay")
+    return launches
+
+
+def phase_repub_profile(card, failures):
+    """``bench.py --mode repub-profile`` at its defaults (65,536 nodes,
+    ``StoreConfig(slots=4, listen_slots=4, max_listeners=1024,
+    payload_words=16)``, 16,384 values, kill 0.5) on a swarm of its
+    own, through the port's ``republish_from``: a warm sweep, then 7
+    timed sweeps (the best is the sweep wall) alternating with 7
+    ``time_phases`` sweeps, split by CUDA events (the best is the
+    attribution; the bench times 3, then attributes 1 split by
+    barriers), one instrumented kernel pass;
+    the value-extract / lookup / store-insert / host-orchestration rows
+    summing to the sweep wall, ``check_ledger_obj``'s rules.  Returns its
+    launches."""
+    import torch
+    from opendht_tpu_torch.models import storage as st
+    from opendht_tpu_torch.obs import ledger as lg
+    from opendht_tpu_torch.models import swarm as sw
+    from opendht_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    def g(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+    cfg = sw.SwarmConfig.for_nodes(REPUB_NODES)
+    w = 16
+    scfg = st.StoreConfig(slots=4, listen_slots=4, max_listeners=1 << 10,
+                          payload_words=w)
+    swarm = sw.build_swarm(cfg, g(0))
+    p = max(1, min(REPUB_PUTS, cfg.n_nodes * scfg.slots // 16))
+    keys = torch.randint(0, 2**32, (p, 5), generator=g(1), device=dev)
+    store, _ = st.announce(
+        swarm, cfg, st.empty_store(cfg.n_nodes, scfg, dev), scfg, keys,
+        torch.arange(p, device=dev) + 1,
+        torch.ones(p, dtype=torch.int64, device=dev), 0, g(2),
+        payloads=torch.randint(0, 2**32, (p, w), generator=g(8),
+                               device=dev))
+    dead = sw.churn(swarm, g(3), REPUB_KILL, cfg)
+    all_idx = torch.arange(cfg.n_nodes, dtype=torch.int32, device=dev)
+
+    def sweep(now, stats=None):
+        # The same generator seed each sweep: every sweep replays the
+        # warm sweep's lookups from the same origins.
+        return st.republish_from(dead, cfg, store, scfg, all_idx, now, g(6),
+                                 stats=stats)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    store, r1 = sweep(1)
+    int(r1.replicas[:8].sum())                     # warm; heals the kill
+    # The timed sweeps and the attribution sweeps (``time_phases``:
+    # split by CUDA events, no barrier between phases) alternate,
+    # REPUB_PAIRS of each, and each side keeps its best: the sweep is
+    # host-bound (a readback a round) and its wall drifts within a
+    # process, so both minima are taken over the same stretch of time.
+    times, attr = [], []
+    for i in range(REPUB_PAIRS):
+        t0 = time.perf_counter()
+        store, r2 = sweep(2 + 2 * i)
+        int(r2.replicas[:8].sum())
+        times.append(time.perf_counter() - t0)
+        ps_ = {"time_phases": True}
+        store, r3 = sweep(3 + 2 * i, ps_)
+        int(r3.replicas[:8].sum())
+        attr.append(ps_)
+    sweep_wall = min(times)
+    pstats = min(attr, key=lambda a: a["sweep_total_s"])
+    led = lg.CostLedger()
+    n0 = lg.step_cache_size()
+    with led.instrument(barrier=True):
+        store, r4 = sweep(2 + 2 * REPUB_PAIRS)
+        int(r4.replicas[:8].sum())
+    led.attr_compile_count = lg.step_cache_size() - n0
+    led.sample_hbm()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    parts = pstats["extract_s"] + pstats["lookup_s"] + pstats["insert_s"]
+    rows = [{"phase": "value-extract", "wall_s": round(pstats["extract_s"], 6)},
+            {"phase": "lookup", "wall_s": round(pstats["lookup_s"], 6)},
+            {"phase": "store-insert", "wall_s": round(pstats["insert_s"], 6)},
+            {"phase": "host-orchestration",
+             "wall_s": round(max(0.0, sweep_wall - parts), 6)}]
+    batch_rows = cfg.n_nodes * scfg.slots
+    led.repub_profile = {
+        "rows": rows, "sweep_wall_s": round(sweep_wall, 6),
+        "attr_sweep_wall_s": round(pstats["sweep_total_s"], 6),
+        "batch_rows": batch_rows,
+        "lookup_rows": pstats.get("lookup_rows", batch_rows),
+        "live_values": p}
+    obj = json.loads(json.dumps(led.to_dict()))
+    errs = ledger_violations(obj)
+    lrows = ledger_rows(obj)
+    reached = ("swarm.lookup_init", "swarm.lookup_step",
+               "swarm._finalize_scattered", "storage._announce_insert")
+    missing = [n for n in reached if lrows.get(n, {}).get("calls", 0) <= 0]
+    out = {"n_nodes": cfg.n_nodes, "n_values": p, "slots": scfg.slots,
+           "payload_bytes": 4 * w, "kill_frac": REPUB_KILL,
+           "batch_rows": batch_rows, "sweep_walls_s": times,
+           "attr_sweep_walls_s": [a["sweep_total_s"] for a in attr],
+           "repub_profile": led.repub_profile,
+           "rows_sum_over_sweep_wall": sum(r["wall_s"] for r in rows)
+           / sweep_wall,
+           "values_per_sec": p / sweep_wall,
+           "mean_replicas_per_value": float(r2.replicas.sum()) / p,
+           "kernel_rows": lrows, "hbm": obj["hbm"],
+           "attr_compile_count": obj["attr_compile_count"],
+           "check_ledger_violations": errs, "launches": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    log("repub_profile " + json.dumps(out))
+    if errs or missing:
+        failures.append(f"repub profile: {errs}, rows not reached {missing}")
+    if launches["merge_round"] <= 0:
+        failures.append("repub profile: K1 was not launched")
+    return launches
+
+
+def store_dht_inserts(card, failures):
+    """The host ``Pht`` over ``StoreDht`` on the index cell's 1M-node
+    swarm and ``IndexSpec``: the first ``STORE_DHT_ENTRIES`` of its
+    drawn entries inserted one by one with the deterministic leaf rule
+    (``parent_insert=False``, a seeded ``random.Random``) into a store of
+    their own, the trie equal to a ``DeviceIndex`` built from the same
+    entries.  Every get and put is a device store operation (a K1
+    lookup, a probe or an insert, one readback).  Runs in a process of
+    its own beside the card-vs-CPU phases (``start_store_dht``).
+    Returns its launches."""
+    import random
+
+    import torch
+    from opendht_tpu_torch.indexation.pht import Pht
+    from opendht_tpu_torch.models import index as ix
+    from opendht_tpu_torch.models import storage as st
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.utils.infohash import InfoHash
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    cfg, swarm, spec, iscfg = index_swarm(dev)
+    keys, ehash, evid = index_entries(INDEX_RANKS, INDEX_ENTRIES, 1.2)[:3]
+    n = min(len(keys), STORE_DHT_ENTRIES)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    adapter = ix.StoreDht(swarm, cfg, st.empty_store(cfg.n_nodes, iscfg, dev),
+                          iscfg, spec, seed=7, device=dev)
+    hp = Pht("bench", {"k": 4}, adapter, rng=random.Random(17),
+             parent_insert=False)
+    done = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        hp.insert(keys[i], (InfoHash(ehash[i].astype(">u4").tobytes()),
+                            int(evid[i])), done.append)
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ops = adapter._ix._op
+    ref = ix.DeviceIndex(swarm, cfg, st.empty_store(cfg.n_nodes, iscfg, dev),
+                         iscfg, spec, seed=9, device=dev)
+    ref.insert_batch(keys[:n], ehash[:n], evid[:n])
+    host_leaves, _ = ix.DeviceIndex(swarm, cfg, adapter.store, iscfg, spec,
+                                    seed=11, device=dev).trie_snapshot()
+    dev_leaves, _ = ref.trie_snapshot()
+    same_trie = host_leaves == dev_leaves
+    log("store_dht_inserts " + json.dumps({
+        "n_nodes": cfg.n_nodes, "entries": n, "distinct_keys": len(
+            {k["k"] for k in keys[:n]}),
+        "inserts_done": sum(map(bool, done)), "insert_wall_s": insert_s,
+        "store_ops": ops, "store_op_ms": 1e3 * insert_s / max(1, ops),
+        "trie_equals_device_index": same_trie,
+        "n_leaves": len(host_leaves),
+        "depth_max": max((d for d, _b in host_leaves), default=0),
+        "launches": launches, "phase_s": time.perf_counter() - t_phase,
+        "card": card}))
+    if len(done) != n or not all(done) or not same_trie:
+        failures.append("store_dht path: an insert failed or the host trie "
+                        "differs from the DeviceIndex's")
+    if launches["merge_round"] <= 0:
+        failures.append("store_dht inserts: K1 was not launched")
+    return launches
+
+
+def store_dht_lookups(x, orc, keys, card, failures):
+    """Host ``Pht`` lookups of ``STORE_DHT_LOOKUPS`` distinct ranks over
+    ``StoreDht.over`` the index cell's device-built trie ``x``, each
+    reading exactly the oracle's entries for its key.  Returns the
+    lookups' launches."""
+    import random
+
+    import torch
+    from opendht_tpu_torch.indexation.pht import Pht
+    from opendht_tpu_torch.models import index as ix
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.utils.infohash import InfoHash
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    reader = Pht("bench", {"k": 4}, ix.StoreDht.over(x),
+                 rng=random.Random(23), parent_insert=False)
+    seen, picked = set(), []
+    for k in keys:
+        if k["k"] not in seen and len(picked) < STORE_DHT_LOOKUPS:
+            seen.add(k["k"])
+            picked.append(k)
+    bits = x.linearize(picked)
+    exact, n_found, op0 = 0, 0, x._op
+    t0 = time.perf_counter()
+    for i, k in enumerate(picked):
+        found = {}
+        reader.lookup(k, lambda vals, p: found.update(vals=vals),
+                      lambda ok: found.update(done=ok))
+        want = {(InfoHash(h), int(v))
+                for h, v in orc.entries_in_range(bits[i], bits[i])}
+        got = set(found.get("vals", []))
+        n_found += len(got)
+        exact += int(bool(found.get("done")) and got == want)
+    torch.cuda.synchronize()
+    lookup_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log("store_dht_lookups " + json.dumps({
+        "lookups": len(picked), "lookups_exact": exact,
+        "entries_read": n_found, "store_ops": x._op - op0,
+        "wall_s": lookup_s, "launches": launches, "card": card}))
+    if exact != len(picked) or len(picked) != STORE_DHT_LOOKUPS:
+        failures.append(f"store_dht path: {exact} of {len(picked)} host "
+                        f"lookups read the device-built trie exactly")
+    if launches["merge_round"] <= 0:
+        failures.append("store_dht lookups: K1 was not launched")
+    return launches
+
+
+def start_store_dht():
+    """Start ``store_dht_inserts`` in a child process (this script with
+    ``--store-dht-child``; it loads the kernels this process built).
+    The inserts are a long chain of small host-driven store operations,
+    so they run beside the card-vs-CPU phases, which are CPU-bound
+    comparisons and measure no time."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--store-dht-child"], stdout=subprocess.PIPE,
+                            text=True, cwd=REPO)
+
+
+def join_store_dht(child, failures) -> dict:
+    """Wait for the child, log its lines, take its failures; returns its
+    launches (zeros if it failed)."""
+    out, _ = child.communicate(timeout=900)
+    result = None
+    for line in out.splitlines():
+        if line.startswith("store_dht_result "):
+            result = json.loads(line.split(" ", 1)[1])
+        else:
+            log(line)
+    if child.returncode != 0 or result is None:
+        failures.append(f"the store_dht child exited {child.returncode}")
+        return None
+    failures.extend(result["failures"])
+    return result["launches"]
+
+
+def store_dht_child() -> int:
+    import torch
+    sys.path.insert(0, REPO)
+    from opendht_tpu_torch.ops import kernels
+    torch.set_num_threads(1)
+    kernels.build_kernels()
+    failures: list[str] = []
+    launches = store_dht_inserts(card_line(), failures)
+    print("store_dht_result " + json.dumps({"launches": launches,
+                                            "failures": failures}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5156,18 +5807,30 @@ def main() -> int:
                     or "spill" in line):
                 log(f"  ptxas {src}: {line.strip()}")
 
-    phase_kernels_vs_plain(dev, failures)
-    phase_card_vs_cpu(dev, failures)
-    phase_chaos_storage_card_vs_cpu(dev, failures)
-    phase_serve_chunked_card_vs_cpu(dev, failures)
-    phase_resident_monitor_card_vs_cpu(dev, failures)
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-    phase_index_soak_card_vs_cpu(dev, failures)
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-    phase_sharded_card_vs_cpu(dev, failures)
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-    phase_mesh_card_vs_cpu(card, failures)
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    child = start_store_dht()
+    try:
+        cpu_threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, cpu_threads - 1))   # one for the child
+        phase_kernels_vs_plain(dev, failures)
+        phase_card_vs_cpu(dev, failures)
+        phase_chaos_storage_card_vs_cpu(dev, failures)
+        phase_serve_chunked_card_vs_cpu(dev, failures)
+        phase_resident_monitor_card_vs_cpu(dev, failures)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        phase_index_soak_card_vs_cpu(dev, failures)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        phase_sharded_card_vs_cpu(dev, failures)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        phase_mesh_card_vs_cpu(card, failures)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+        torch.set_num_threads(cpu_threads)
+        launches_sdi = join_store_dht(child, failures)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s (store_dht "
+            f"inserts joined)")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
 
     # ---- the main path -------------------------------------------------
     cfg = sw.SwarmConfig.for_nodes(N_NODES)
@@ -5263,12 +5926,16 @@ def main() -> int:
                                                      targets, gen)))
     log("layers_ms " + json.dumps(layer_times(sw, swarm, cfg, targets,
                                               gen)))
+    # ---- the cost ledger on the main path --------------------------------
+    launches_l = phase_ledger_path(sw, swarm, cfg, targets, origins, res,
+                                   truth, card, failures)
 
     # ---- this slice's paths: the chaos engine and the storage plane ----
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_c = phase_chaos_full(sw, swarm, cfg, targets, card, failures)
     launches_s, local_storage = phase_storage_full(sw, swarm, cfg_f, card,
                                                    failures)
+    launches_rp = phase_repub_profile(card, failures)
 
     # ---- the serve engine and chunked values ----------------------------
     launches_v, serve_times, burst_legs, burst_profiles = phase_serve_full(
@@ -5289,7 +5956,9 @@ def main() -> int:
     # ---- the PHT index and the soak (on swarms of their own) -----------
     del res, truth, targets, origins
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-    launches_i = phase_index_full(card, failures)
+    launches_i, launches_sdl = phase_index_full(card, failures)
+    launches_sd = {k: (launches_sdi or {}).get(k, 0) + v
+                   for k, v in launches_sdl.items()}
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_so = phase_soak_full(cfg, card, failures)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
@@ -5302,6 +5971,8 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_m = phase_monitor_full(sw, swarm, cfg, card, failures)
     by_path = {"main": launches, "fused": launches_f, "chaos": launches_c,
+               "ledger": launches_l, "repub_profile": launches_rp,
+               "store_dht": launches_sd,
                "storage": launches_s, "serve": launches_v,
                "resident": launches_r, "chunked": launches_k,
                "index": launches_i, "soak": launches_so,
@@ -5336,4 +6007,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--store-dht-child"]:
+        sys.exit(store_dht_child())
     sys.exit(main())

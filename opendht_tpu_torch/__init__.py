@@ -5,15 +5,18 @@ content ids, chunked values and the integrity plane, the open-loop
 serve engine (burst form, and the resident form whose macro step is one
 CUDA graph), the swarm-health monitor, the PHT secondary index and the
 always-on soak engine that runs serving, maintenance and monitoring in
-one loop.
+one loop; and around them the cost ledger, the metrics registry with
+its Prometheus planes, and the host ``Pht`` index over the device store
+(``StoreDht``).
 
 The package mirrors the layout of ``opendht_tpu`` (``ops/xor_metric.py``,
 ``ops/kernels.py``, ``ops/sha1.py``, ``models/swarm.py``,
 ``models/storage.py``, ``models/chunked_values.py``,
 ``models/integrity.py``, ``models/serve.py``, ``models/monitor.py``,
 ``models/index.py``, ``models/soak.py``, ``obs/health.py``,
-``obs/timeline.py``, ``utils/rate_limiter.py``, ``utils/metrics.py`` and,
-for value signing, ``crypto/``) so each function has an obvious
+``obs/timeline.py``, ``obs/latency.py``, ``obs/ledger.py``,
+``indexation/pht.py``, ``utils/rate_limiter.py``, ``utils/metrics.py``,
+``utils/infohash.py`` and, for value signing, ``crypto/``) so each function has an obvious
 counterpart there, and computes bit-identical results on the same state
 (``tests/test_torch_*.py``).  It imports ``torch`` and nothing of JAX;
 ``cryptography`` and ``msgpack`` are optional (signing only).

@@ -34,7 +34,12 @@ trie walk, the split rule, :class:`PhtOracle`) is numpy, as in JAX.
 Randomness: the JAX engine folds a key a store op for the lookup
 origins; here op ``i`` (1, 2, ...) of a ``P``-row batch takes its
 origins from ``draws(i, P)`` if given, else from a ``torch.Generator``
-seeded ``seed``.  The host ``Pht`` facade (``StoreDht``) is not ported.
+seeded ``seed``.
+
+:class:`StoreDht` is the host DHT surface (get / put / listen) the host
+:class:`~opendht_tpu_torch.indexation.pht.Pht` runs against, over the
+same store and slot-key encoding, so a host-built and a device-built
+index are views of one stored trie.
 """
 
 from __future__ import annotations
@@ -784,6 +789,171 @@ class DeviceIndex:
                                   np_bits_key(fb[i], int(fd[i]))))
             frontier = nxt
         return leaves, interior
+
+
+# ---------------------------------------------------------------------------
+# host DHT facade over the device store (Pht ↔ SwarmStore bridge)
+# ---------------------------------------------------------------------------
+
+class StoreDht:
+    """The host DHT surface (get / put / listen) the host
+    :class:`~opendht_tpu_torch.indexation.pht.Pht` runs against, backed
+    by the device :class:`~opendht_tpu_torch.models.storage.SwarmStore`
+    and speaking :class:`DeviceIndex`'s slot-key encoding — so a
+    host-built and a device-built index are views of one stored trie.
+
+    Every get and put is a device store operation of
+    :meth:`DeviceIndex._get` / :meth:`DeviceIndex._put` (a lookup — K1
+    on the card — a probe or an insert, one readback).  Synchronous:
+    every callback fires before the call returns, and a listen delivers
+    the current values at registration and again after every put to its
+    key, so the host's listener-triggered re-inserts after a split run
+    eagerly; a callback returning ``False`` cancels its listen.
+    ``seed`` / ``draws`` / ``device`` go to the engine."""
+
+    def __init__(self, swarm: Swarm, cfg: SwarmConfig, store: SwarmStore,
+                 scfg: StoreConfig, spec: IndexSpec, seed: int = 1, *,
+                 draws: Callable[[int, int], torch.Tensor] | None = None,
+                 device=None):
+        self._ix = DeviceIndex(swarm, cfg, store, scfg, spec, seed=seed,
+                               draws=draws, device=device)
+        self.spec = spec
+        self._listeners: Dict[bytes, list] = {}
+
+    @classmethod
+    def over(cls, ix: "DeviceIndex") -> "StoreDht":
+        """A view over an existing engine (sharing its live store): host
+        ``Pht`` reads see the engine's writes and the other way round."""
+        self = cls.__new__(cls)
+        self._ix = ix
+        self.spec = ix.spec
+        self._listeners = {}
+        return self
+
+    @property
+    def store(self) -> SwarmStore:
+        return self._ix.store
+
+    @staticmethod
+    def _limbs(h) -> np.ndarray:
+        return np.frombuffer(bytes(h), dtype=">u4").astype(np.uint32)
+
+    def _node_values(self, h) -> list:
+        """Every index value stored under trie-node hash ``h`` — the
+        canary (slot 0) and each entry slot — as host values."""
+        from ..crypto.value import Value
+        from ..indexation.pht import IndexEntry, Prefix
+        from ..utils.infohash import InfoHash
+
+        keys = slot_keys(
+            np.broadcast_to(self._limbs(h),
+                            (MAX_NODE_ENTRY_COUNT + 1, 5)).copy(),
+            np.arange(MAX_NODE_ENTRY_COUNT + 1, dtype=np.uint32))
+        hit, val, pl = self._ix._get(keys.astype(np.uint32))
+        vals = []
+        if hit[0] and val[0] == CANARY_TOKEN:
+            vals.append(Value(b"", 0, user_type=self.spec.canary_type))
+        pw = self.spec.prefix_words
+        for sl in range(1, MAX_NODE_ENTRY_COUNT + 1):
+            if not hit[sl]:
+                continue
+            content = pl[sl][7:7 + pw].astype(">u4").tobytes()
+            entry = IndexEntry(
+                Prefix(content[:self.spec.prefix_bytes], int(pl[sl][6])),
+                (InfoHash(pl[sl][0:5].astype(">u4").tobytes()),
+                 int(pl[sl][5])), self.spec.value_type)
+            vals.append(entry.pack_value())
+        return vals
+
+    # -- the Pht-facing surface -----------------------------------------
+
+    def get(self, h, get_cb, done_cb=None, f=None) -> None:
+        vals = self._node_values(h)
+        if f is not None:
+            vals = [v for v in vals if f(v)]
+        if vals and get_cb is not None:
+            get_cb(vals)
+        if done_cb:
+            done_cb(True, None)
+
+    def put(self, h, value, done_cb=None) -> None:
+        from ..indexation.pht import IndexEntry
+
+        base = self._limbs(h)
+        if value.user_type == self.spec.canary_type:
+            self._ix._put(base[None, :], np.asarray([CANARY_TOKEN], np.uint32),
+                          np.zeros((1, self.spec.payload_words), np.uint32))
+        else:
+            entry = IndexEntry.unpack_value(value)
+            ehash = self._limbs(entry.value[0])
+            vid = np.uint32(entry.value[1])
+            # As the device engine: an existing slot of the same (hash,
+            # vid) is refreshed, else the first free slot is taken.
+            keys = slot_keys(
+                np.broadcast_to(base, (MAX_NODE_ENTRY_COUNT, 5)).copy(),
+                np.arange(1, MAX_NODE_ENTRY_COUNT + 1, dtype=np.uint32))
+            hit, _val, pl = self._ix._get(keys.astype(np.uint32))
+            slot = None
+            for sl in range(MAX_NODE_ENTRY_COUNT):
+                if hit[sl] and int(pl[sl][5]) == int(vid) \
+                        and (pl[sl][0:5] == ehash).all():
+                    slot = sl
+                    break
+            if slot is None:
+                free = np.nonzero(~hit)[0]
+                if free.size == 0:
+                    if done_cb:
+                        done_cb(False, None)
+                    return
+                slot = int(free[0])
+            content = entry.prefix.content
+            content = content + bytes(self.spec.prefix_words * 4
+                                      - len(content))
+            bits = np.frombuffer(content, dtype=">u4").astype(np.uint32)
+            payload = np.concatenate([
+                ehash, np.asarray([vid, entry.prefix.size], np.uint32),
+                bits]).astype(np.uint32)[None, :]
+            self._ix._put(keys[slot][None, :].astype(np.uint32),
+                          entry_tokens(ehash[0], vid)[None], payload)
+        if done_cb:
+            done_cb(True, None)
+        self._fire_listeners(bytes(h))
+
+    def listen(self, h, cb, f=None) -> int:
+        hb = bytes(h)
+        entry = (cb, f)
+        self._listeners.setdefault(hb, []).append(entry)
+        self._deliver(hb, entry)        # current values at registration
+        return len(self._listeners[hb])
+
+    # -- listener plumbing ----------------------------------------------
+
+    def _deliver(self, hb: bytes, entry) -> None:
+        """Deliver ``hb``'s values to one listener.  A callback that
+        returns ``False`` cancels its listen, as the reference's listen
+        does, and the listener is off its list while its callback runs:
+        ``Pht``'s split listener re-inserts from inside its callback, and
+        that re-insert's canary put may land on the listened key itself,
+        which an asynchronous DHT would deliver only after the callback
+        had returned ``False``.  (The JAX package's adapter keeps every
+        listener, so there such a put re-fires it without end.)"""
+        from ..utils.infohash import InfoHash
+        cb, f = entry
+        vals = self._node_values(InfoHash(hb))
+        if f is not None:
+            vals = [v for v in vals if f(v)]
+        if not vals:
+            return
+        live = self._listeners.get(hb, [])
+        at = live.index(entry)
+        live.pop(at)
+        if cb(vals) is not False:
+            live.insert(min(at, len(live)), entry)
+
+    def _fire_listeners(self, hb: bytes) -> None:
+        for entry in list(self._listeners.get(hb, ())):
+            if entry in self._listeners.get(hb, ()):     # still listening
+                self._deliver(hb, entry)
 
 
 # ---------------------------------------------------------------------------

@@ -1486,6 +1486,19 @@ def _resident_step_cached(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
                           gated)
 
 
+# CUDA graphs captured by the resident engines in this process (what the
+# cost ledger's compile count reads: a capture inside a clocked pass is
+# the counterpart of a compile).
+GRAPH_CAPTURES = 0
+
+
+def _resident_replay(graph: "torch.cuda.CUDAGraph") -> None:
+    """One replay of a captured macro step — on the card the resident
+    engines' counterpart of one compiled macro-step call, and the cost
+    ledger's ``serve._resident_replay`` row."""
+    graph.replay()
+
+
 def _out_layout(a: int, c: int, q: int, n_rungs: int):
     """``(name, shape)`` of each :class:`ResidentOut` field, in order."""
     shapes = {"hit": (a,), "hit_req": (a,), "hit_found": (a, q),
@@ -1693,6 +1706,8 @@ class ResidentServeEngine(ServeEngine):
         if mesh is not None:
             calls0, bytes0 = (dict(mesh.captured),
                               dict(mesh.captured_bytes))
+        global GRAPH_CAPTURES
+        GRAPH_CAPTURES += 1
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):       # the default (global) capture mode
             st, rings, cache, out = body()
@@ -1746,7 +1761,7 @@ class ResidentServeEngine(ServeEngine):
         io["in_ev"][b].record()
         for lo, hi, x in on_card:
             p[lo:hi].copy_(x.reshape(-1))
-        g["graph"].replay()
+        _resident_replay(g["graph"])
         kernels.count_replay(g["launches"])
         if "collectives" in g:
             self.mesh.count_replay(g["collectives"], g["collective_bytes"])

@@ -667,11 +667,15 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
     scenario event has changed the swarm, with the loop second it fired.
 
     Returns the JAX report's keys plus ``found`` ``[completed, quorum]``
-    (each completion's found head, beside ``request``).  The Prometheus
-    latency plane is not ported: ``latency_plane`` must be ``None``."""
-    if latency_plane is not None:
-        raise NotImplementedError("the Prometheus latency plane is not "
-                                  "ported")
+    (each completion's found head, beside ``request``).
+    ``latency_plane`` (an :class:`~opendht_tpu_torch.obs.latency.LatencyPlane`
+    labelled by ``op``), if given, observes every serve, scan and chunk
+    completion's latency at the JAX loop's four sites; one without an
+    ``observe`` method is refused before the clock starts."""
+    if latency_plane is not None and \
+            not callable(getattr(latency_plane, "observe", None)):
+        raise ValueError("latency_plane needs observe(seconds, op=...) "
+                         "(a LatencyPlane labelled by 'op')")
     clock = clock or time.perf_counter
     sleep = sleep or time.sleep
     engine = soak.serve
@@ -855,6 +859,8 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
             lat = max(0.0, (t1f - t0) - float(arrival_ts[ri]))
             scan_lat.append(lat)
             scan_entries += len(res[j])
+            if latency_plane is not None:
+                latency_plane.observe(lat, op="scan")
             if timeline is not None:
                 timeline.note_complete("scan", lat, t1f - t0)
         scan_done += len(take)
@@ -889,6 +895,8 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
             for ri in take:
                 lat = max(0.0, (t1f - t0) - float(arrival_ts[ri]))
                 chunk_lat.append(lat)
+                if latency_plane is not None:
+                    latency_plane.observe(lat, op="chunk")
                 if timeline is not None:
                     timeline.note_complete("chunk", lat, t1f - t0)
             chunk_done += len(take)
@@ -996,6 +1004,9 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
                     completed += 1
                     com_c[WC_READ] += 1
                     cache_hits += 1
+                    if latency_plane is not None:
+                        latency_plane.observe(
+                            lat, op=WORK_CLASS_NAMES[WC_READ])
                     if timeline is not None:
                         timeline.note_complete(
                             WORK_CLASS_NAMES[WC_READ], lat, now)
@@ -1121,6 +1132,8 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
                     fill_h.append(int(hops[slot]))
                 if wcls == WC_WRITE:
                     fold_groups.setdefault("write", []).append((slot, ri))
+                if latency_plane is not None:
+                    latency_plane.observe(lat, op=WORK_CLASS_NAMES[wcls])
                 if timeline is not None:
                     timeline.note_complete(WORK_CLASS_NAMES[wcls], lat, w)
             else:

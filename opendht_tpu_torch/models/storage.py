@@ -850,9 +850,36 @@ def _repub_writeback(rows: torch.Tensor, replicas: torch.Tensor,
     return rep, hp, dn
 
 
-def _barrier(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+class _PhaseClock:
+    """The phase boundaries of one call.  On the card each mark is a
+    CUDA event on the current stream, so the split puts no barrier
+    between phases: a barrier would drain the queue and lay each phase's
+    host work end to end with the last one's device tail, and in eager
+    torch that makes the phases of a republish sweep sum to more than
+    the sweep takes unsplit (PERF.md §6).  On the CPU every operation
+    has ended when it returns, and a mark is the host clock."""
+
+    def __init__(self, dev: torch.device):
+        self.stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                       else None)
+        self.marks: list = []
+
+    def mark(self) -> None:
+        if self.stream is None:
+            self.marks.append(time.perf_counter())
+        else:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(self.stream)
+            self.marks.append(ev)
+
+    def spans(self) -> list[float]:
+        """Seconds between consecutive marks (on the card, after the
+        last mark has been reached)."""
+        m = self.marks
+        if self.stream is None:
+            return [b - a for a, b in zip(m, m[1:])]
+        m[-1].synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in zip(m, m[1:])]
 
 
 def republish_from(swarm: Swarm, cfg: SwarmConfig, store: SwarmStore,
@@ -874,12 +901,16 @@ def republish_from(swarm: Swarm, cfg: SwarmConfig, store: SwarmStore,
     ``origins``, where given, holds one origin per lookup row:
     ``stats["lookup_rows"]`` of the sweep.  ``stats`` with
     ``time_phases`` set receives ``extract_s``, ``lookup_s``,
-    ``insert_s`` and ``sweep_total_s``, split by device barriers (so
-    time such a sweep apart from unbarriered ones).  Returns ``(store,
-    AnnounceReport)``; the store is updated in place."""
+    ``insert_s`` and ``sweep_total_s`` (their sum), split on the card by
+    CUDA events at the phase boundaries, with no barrier between phases
+    (:class:`_PhaseClock`); the call then waits for its last phase.
+    Returns ``(store, AnnounceReport)``; the store is updated in
+    place."""
     dev = resolve_device(device)
     timing = bool(stats) and stats.get("time_phases")
-    t0 = time.perf_counter() if timing else 0.0
+    clock = _PhaseClock(dev) if timing else None
+    if timing:
+        clock.mark()
     m = node_idx.shape[0] * scfg.slots
     rows = None
     if compact:
@@ -894,14 +925,10 @@ def republish_from(swarm: Swarm, cfg: SwarmConfig, store: SwarmStore,
         keys, vals, seqs, sizes, ttls, payloads, okf = _repub_extract(
             swarm.alive, store, node_idx, cfg, scfg)
     if timing:
-        _barrier(dev)
-        t1 = time.perf_counter()
-        stats["extract_s"] = t1 - t0
+        clock.mark()
     res = lookup(swarm, cfg, keys, generator, origins=origins, device=dev)
     if timing:
-        _barrier(dev)
-        t2 = time.perf_counter()
-        stats["lookup_s"] = t2 - t1
+        clock.mark()
     found = drop_exchanges(_mask_unowned(okf, res.found), drop_frac,
                            drop_generator, keep=drop_keep)
     store, replicas, trace = _announce_insert(
@@ -912,10 +939,10 @@ def republish_from(swarm: Swarm, cfg: SwarmConfig, store: SwarmStore,
         replicas, hops, done = _repub_writeback(rows, replicas, hops, done,
                                                 m)
     if timing:
-        _barrier(dev)
-        t3 = time.perf_counter()
-        stats["insert_s"] = t3 - t2
-        stats["sweep_total_s"] = t3 - t0
+        clock.mark()
+        spans = clock.spans()
+        stats["extract_s"], stats["lookup_s"], stats["insert_s"] = spans
+        stats["sweep_total_s"] = sum(spans)
     if stats is not None:
         stats["lookup_rows"] = int(keys.shape[0])
         stats["batch_rows"] = m

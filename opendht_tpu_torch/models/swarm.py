@@ -44,6 +44,7 @@ from ..ops.u32 import MASK32, U32_MAX, lexsort, mul32, prefix_len32, shl32
 from ..ops.xor_metric import (
     N_LIMBS,
     closest_nodes_batched,
+    lex_searchsorted,
     merge_ladder_widths,
     merge_shortlists_d0,
     pick_merge_width,
@@ -346,6 +347,58 @@ def _require_on(swarm: Swarm, dev: torch.device) -> None:
     if swarm.ids.device != dev:
         raise ValueError(f"the swarm lives on {swarm.ids.device}, but the "
                          f"call runs on {dev}")
+
+
+# ---------------------------------------------------------------------------
+# bit helpers on packed ids (bit positions may be tensors)
+# ---------------------------------------------------------------------------
+
+def _prefix_mask(nbits) -> torch.Tensor:
+    """``[..., 5]`` u32 mask keeping the first ``nbits`` bits of an id."""
+    nbits = torch.as_tensor(nbits, dtype=torch.int64)
+    limbs = []
+    for j in range(N_LIMBS):
+        rem = (nbits - 32 * j).clamp(0, 32)
+        m = shl32(torch.full_like(rem, MASK32), (32 - rem).clamp(0, 31))
+        limbs.append(torch.where(rem == 0, 0, m))
+    return torch.stack(limbs, dim=-1)
+
+
+def _bit_mask(bit) -> torch.Tensor:
+    """``[..., 5]`` u32 with only ``bit`` (0 = MSB of limb 0) set."""
+    bit = torch.as_tensor(bit, dtype=torch.int64)
+    limbs = []
+    for j in range(N_LIMBS):
+        off = bit - 32 * j
+        in_limb = (off >= 0) & (off < 32)
+        limbs.append(torch.where(in_limb, shl32(torch.ones_like(off),
+                                                (31 - off).clamp(0, 31)), 0))
+    return torch.stack(limbs, dim=-1)
+
+
+def bucket_range(sorted_ids: torch.Tensor, node_ids: torch.Tensor, b,
+                 inclusive=False):
+    """Sorted-range ``[lo, hi)`` of a node's bucket-``b`` key-space.
+
+    Exclusive (normal) bucket: ids sharing exactly ``b`` prefix bits
+    (first ``b`` bits equal, bit ``b`` flipped), a dyadic interval and so
+    contiguous in the sorted matrix.  Inclusive (deepest) bucket: ids
+    sharing at least ``b`` bits (``RoutingTable::split``).  Off the
+    engine's path (the port builds buckets from limb 0 alone); kept
+    for parity with the JAX package."""
+    pm1 = _prefix_mask(torch.as_tensor(b) + 1).to(node_ids.device)
+    pmb = _prefix_mask(b).to(node_ids.device)
+    bm = _bit_mask(b).to(node_ids.device)
+    lo_ex = (node_ids & pm1) ^ bm
+    hi_ex = lo_ex | (~pm1 & MASK32)
+    lo_in = node_ids & pmb
+    hi_in = lo_in | (~pmb & MASK32)
+    inc = torch.as_tensor(inclusive, device=node_ids.device)
+    lo = lex_searchsorted(sorted_ids, torch.where(inc, lo_in, lo_ex),
+                          side="left")
+    hi = lex_searchsorted(sorted_ids, torch.where(inc, hi_in, hi_ex),
+                          side="right")
+    return lo, hi
 
 
 # ---------------------------------------------------------------------------
@@ -897,6 +950,14 @@ def traced_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
     return LookupResult(found=found, hops=hops, done=done), trace
 
 
+def lookup_steps(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
+                 n_steps: int) -> LookupState:
+    """Run a fixed number of lock-step rounds (no early exit)."""
+    for _ in range(n_steps):
+        st = lookup_step(swarm, cfg, st)
+    return st
+
+
 # ---------------------------------------------------------------------------
 # round loops
 # ---------------------------------------------------------------------------
@@ -960,6 +1021,25 @@ def _writeback_prefix(full: LookupState, sub: LookupState) -> LookupState:
                          for f, s in zip(full, sub)])
 
 
+def _compact_slice(st: LookupState, order: torch.Tensor, w: int):
+    """First compaction: repack pending-first → ``(full, order, sub)``,
+    the repacked full state, the row provenance and the ``[:w]``
+    dispatch view."""
+    perm = _stable_done_perm(st.done)
+    full = _permute_state(st, perm)
+    return full, order[perm], _prefix(full, w)
+
+
+def _compact_resize(full: LookupState, order: torch.Tensor,
+                    sub: LookupState, w: int):
+    """Later compactions: fold the advanced prefix back into the full
+    state, repack, and re-slice at the smaller width ``w``."""
+    wo = sub.done.shape[0]
+    full = LookupState(*[f if f is None else torch.cat([s, f[wo:]])
+                         for f, s in zip(full, sub)])
+    return _compact_slice(full, order, w)
+
+
 def _pending_and_wneed(st: LookupState, cfg: SwarmConfig):
     """The per-burst readback, as one transfer: the pending row count
     (steers the row ladder) and the live-slot watermark — the widest
@@ -1019,11 +1099,10 @@ def run_compacted_burst_loop(step_fn, st: LookupState, cfg: SwarmConfig,
             merge_w = pick_merge_width(wneed, resp_w, 2 * cfg.bucket_k)
         w_new = _ladder_width(pending, l)
         if w_new < w:
-            full = sub if w == l else _writeback_prefix(full, sub)
-            perm = _stable_done_perm(full.done)
-            full = _permute_state(full, perm)
-            order = order[perm]
-            sub = _prefix(full, w_new)
+            if w == l:
+                full, order, sub = _compact_slice(sub, order, w_new)
+            else:
+                full, order, sub = _compact_resize(full, order, sub, w_new)
             w = w_new
     full = _writeback_prefix(full, sub) if w < l else sub
     if stats is not None:
@@ -1332,10 +1411,12 @@ def chaos_lookup_init(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
 
 def chaos_lookup_step(swarm: Swarm, cfg: SwarmConfig, faults: LookupFaults,
                       st: LookupState, strikes: torch.Tensor, rnd: int,
-                      byz_aux=None, trace: LookupTrace | None = None):
-    """One adversarial round (:func:`chaos_step_impl`)."""
+                      byz_aux=None, trace: LookupTrace | None = None,
+                      done_base: int = 0):
+    """One adversarial round (:func:`chaos_step_impl`); the chaos
+    engine's loops run every round through here."""
     return chaos_step_impl(swarm, cfg, faults, st, strikes, rnd,
-                           byz_aux=byz_aux, trace=trace)
+                           byz_aux=byz_aux, trace=trace, done_base=done_base)
 
 
 def chaos_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
@@ -1383,8 +1464,8 @@ def chaos_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
 
         def step(s, ex, r, hidden, mw):
             prev["strikes"] = ex[0]
-            out = chaos_step_impl(swarm, cfg, faults, s, ex[0], r, byz_aux,
-                                  trace=trace, done_base=hidden)
+            out = chaos_lookup_step(swarm, cfg, faults, s, ex[0], r, byz_aux,
+                                    trace=trace, done_base=hidden)
             return out[0], tuple(out[1:])
 
         st, extras, order = run_compacted_burst_loop(
@@ -1397,8 +1478,8 @@ def chaos_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
         found, hops, done = _finalize_scattered(swarm.ids, st, order, cfg)
     else:
         st, strikes = run_burst_loop(
-            lambda c, r: chaos_step_impl(swarm, cfg, faults, c[0], c[1], r,
-                                         byz_aux, trace=trace)[:2],
+            lambda c, r: chaos_lookup_step(swarm, cfg, faults, c[0], c[1],
+                                           r, byz_aux, trace=trace)[:2],
             (st, strikes), cfg, done_of=lambda c: c[0].done)
         _lifecycle_stats(st, None, stats, track_lifecycle)
         found, hops, done = _finalize(swarm.ids, st, cfg), st.hops, st.done

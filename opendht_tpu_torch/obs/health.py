@@ -12,17 +12,20 @@ The port's own copy of the numpy half of ``opendht_tpu/obs/health.py``
 * :func:`poisson_density_profile` — distinct-node counts per crawl
   bucket against the Poisson(N/G) law of uniform random ids;
 * :func:`summarize_sweeps` — the steady-state reduction of a monitor's
-  sweep records.
-
-The Prometheus gauge surface (``SwarmHealthPlane``) is not ported.
+  sweep records;
+* :class:`SwarmHealthPlane` — publishes the monitor's per-sweep records
+  (:class:`~opendht_tpu_torch.models.monitor.MonitorEngine`) through the
+  Prometheus registry (:mod:`opendht_tpu_torch.utils.metrics`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from ..utils.metrics import MetricsRegistry
 
 
 # ---------------------------------------------------------------------------
@@ -252,3 +255,109 @@ def summarize_sweeps(records: Sequence[Dict[str, object]]
         "freshness_p99_final": recs[-1]["age_p99"],
     })
     return out
+
+
+# ---------------------------------------------------------------------------
+# the gauge surface
+# ---------------------------------------------------------------------------
+
+class SwarmHealthPlane:
+    """Publishes the monitor's sweep records through the registry.
+
+    Gauge catalogue (``prefix`` defaults to ``dht_swarm``):
+
+    * ``<p>_coverage_ratio`` — tracked∩alive / alive;
+    * ``<p>_tracked_alive`` / ``<p>_actual_alive`` — populations;
+    * ``<p>_false_alive`` / ``<p>_false_dead`` — undetected
+      departures / wrongly-presumed deaths;
+    * ``<p>_freshness_age_sweeps{q="p50"|"p99"}`` — age percentiles;
+    * ``<p>_detection_lag_sweeps{stat="mean"|"max"}`` — churn-
+      detection lag of deaths confirmed this sweep;
+    * ``<p>_sweep_index`` / ``<p>_buckets_probed`` — sweep geometry;
+    * counters ``<p>_sweeps_total``, ``<p>_lookups_total``,
+      ``<p>_nodes_seen_total``, ``<p>_deaths_detected_total``;
+    * ``<p>_density_nodes{prefix}`` — tracked nodes per coarse
+      keyspace region (top ``density_depth`` bits, 16 regions by
+      default) and ``<p>_density_poisson_tv`` — the density profile's
+      distance from the Poisson law.
+    """
+
+    def __init__(self, registry: MetricsRegistry,
+                 prefix: str = "dht_swarm", density_depth: int = 4):
+        self.registry = registry
+        self.density_depth = density_depth
+        g = registry.gauge
+        self._coverage = g(f"{prefix}_coverage_ratio",
+                           "Tracked-alive over actually-alive nodes")
+        self._tracked = g(f"{prefix}_tracked_alive",
+                          "Nodes the monitor presumes alive")
+        self._actual = g(f"{prefix}_actual_alive",
+                         "Ground-truth alive nodes")
+        self._false_alive = g(f"{prefix}_false_alive",
+                              "Departed nodes not yet detected")
+        self._false_dead = g(f"{prefix}_false_dead",
+                             "Alive nodes wrongly presumed dead")
+        self._age = g(f"{prefix}_freshness_age_sweeps",
+                      "Freshness age percentile over tracked nodes",
+                      ("q",))
+        self._lag = g(f"{prefix}_detection_lag_sweeps",
+                      "Churn-detection lag of deaths confirmed this "
+                      "sweep", ("stat",))
+        self._sweep = g(f"{prefix}_sweep_index", "Last completed sweep")
+        self._probed = g(f"{prefix}_buckets_probed",
+                         "Buckets probed in the last sweep")
+        c = registry.counter
+        self._sweeps = c(f"{prefix}_sweeps_total", "Sweeps completed")
+        self._lookups = c(f"{prefix}_lookups_total",
+                          "Probe lookups dispatched")
+        self._seen = c(f"{prefix}_nodes_seen_total",
+                       "Node sightings folded")
+        self._deaths = c(f"{prefix}_deaths_detected_total",
+                         "Departures confirmed")
+        self._density = g(f"{prefix}_density_nodes",
+                          "Tracked nodes per coarse keyspace region",
+                          ("prefix",))
+        self._density_tv = g(f"{prefix}_density_poisson_tv",
+                             "Total variation of the per-bucket "
+                             "density profile vs the Poisson "
+                             "random-ID law")
+
+    def publish_sweep(self, record: Dict[str, object]) -> None:
+        r = record
+        self._sweep.set(r["sweep"])
+        self._probed.set(r["buckets_probed"])
+        self._sweeps.inc()
+        self._lookups.inc(r["lookups"])
+        if "coverage" not in r:        # freshness plane off
+            return
+        self._coverage.set(r["coverage"])
+        self._tracked.set(r["tracked_alive"])
+        self._actual.set(r["actual_alive"])
+        self._false_alive.set(r["false_alive"])
+        self._false_dead.set(r["false_dead"])
+        self._age.set(r["age_p50"], q="p50")
+        self._age.set(r["age_p99"], q="p99")
+        self._seen.inc(r["nodes_seen"])
+        self._deaths.inc(r["lag_count"])
+        if r["lag_count"]:
+            self._lag.set(r["lag_sum"] / r["lag_count"], stat="mean")
+            self._lag.set(r["lag_max"], stat="max")
+
+    def publish_density(self, bucket_counts: Sequence[int],
+                        profile: Optional[Dict[str, object]] = None
+                        ) -> Dict[str, object]:
+        """Fold per-bucket tracked counts into the coarse density
+        gauges; returns (and publishes the tv of) the Poisson
+        profile."""
+        counts = np.asarray(bucket_counts, np.int64)
+        g = counts.shape[0]
+        coarse = min(self.density_depth, max(0, g.bit_length() - 1))
+        per = g >> coarse
+        for i in range(1 << coarse):
+            self._density.set(
+                int(counts[i * per:(i + 1) * per].sum()),
+                prefix=format(i, f"0{max(1, (coarse + 3) // 4)}x"))
+        if profile is None:
+            profile = poisson_density_profile(counts)
+        self._density_tv.set(profile["tv"])
+        return profile

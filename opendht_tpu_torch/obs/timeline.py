@@ -14,8 +14,10 @@ occupancy), the maintenance plane (sweeps, store-sweep ops with their
 walls, the monitor's coverage) and cumulative lifecycle snapshots.
 :func:`interference_ledger` aligns a maintenance-on and a
 maintenance-off timeline over one schedule and attributes the serve-p99
-delta to maintenance-active intervals.  The Prometheus faces
-(``SoakPlane``, ``ResidentPlane``) are not ported.
+delta to maintenance-active intervals.  :class:`SoakPlane` and
+:class:`ResidentPlane` publish the soak timeline's rows and a resident
+serve report through the Prometheus registry
+(:mod:`opendht_tpu_torch.utils.metrics`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils.metrics import Histogram
+from ..utils.metrics import Histogram, MetricsRegistry
 
 # Work-class names, mirrored from models.soak (this module imports no
 # tensor code).
@@ -329,6 +331,76 @@ def interference_ledger(on: dict, off: dict) -> dict:
     }
 
 
+class SoakPlane:
+    """The soak gauge catalogue on the registry (``prefix``
+    defaults to ``dht_soak``):
+
+    * counters ``<p>_slot_rounds_total{wclass}``,
+      ``<p>_requests_total{op,event}`` (event ∈ admitted / completed /
+      expired), ``<p>_sweeps_total{kind}``, ``<p>_maint_ops_total``;
+    * gauges ``<p>_interval_latency_seconds{q}`` (last interval's
+      bucket-derived p50/p99), ``<p>_interval_slo_violation_ratio``,
+      ``<p>_occupancy_ratio{side}``, ``<p>_monitor_coverage_ratio``,
+      ``<p>_maint_ops_wall_seconds`` (cumulative).
+    """
+
+    def __init__(self, registry: MetricsRegistry,
+                 prefix: str = "dht_soak"):
+        self.registry = registry
+        c, g = registry.counter, registry.gauge
+        self._rounds = c(f"{prefix}_slot_rounds_total",
+                         "Dispatched slot-rounds", ("wclass",))
+        self._reqs = c(f"{prefix}_requests_total",
+                       "Request lifecycle events", ("op", "event"))
+        self._sweeps = c(f"{prefix}_sweeps_total",
+                         "Maintenance sweeps finished", ("kind",))
+        self._ops = c(f"{prefix}_maint_ops_total",
+                      "Slot-free maintenance store sweeps")
+        self._lat = g(f"{prefix}_interval_latency_seconds",
+                      "Bucket-derived interval latency quantile",
+                      ("q",))
+        self._slo = g(f"{prefix}_interval_slo_violation_ratio",
+                      "SLO violations over completions, last interval")
+        self._occ = g(f"{prefix}_occupancy_ratio",
+                      "Slot-round occupancy share of the interval",
+                      ("side",))
+        self._cov = g(f"{prefix}_monitor_coverage_ratio",
+                      "Monitor coverage after the last finished sweep")
+        self._opw = g(f"{prefix}_maint_ops_wall_seconds",
+                      "Cumulative slot-free maintenance wall")
+        self._ops_wall = 0.0
+
+    def publish_interval(self, row: dict) -> None:
+        for w in WCLASS_NAMES:
+            self._rounds.inc(row["slot_rounds"][w], wclass=w)
+        for op_name in row["admitted"]:
+            self._reqs.inc(row["admitted"][op_name], op=op_name,
+                           event="admitted")
+        for op_name in row["completed"]:
+            self._reqs.inc(row["completed"][op_name], op=op_name,
+                           event="completed")
+        for op_name in row["expired"]:
+            self._reqs.inc(row["expired"][op_name], op=op_name,
+                           event="expired")
+        for kind, nswp in row["sweeps_finished"].items():
+            if nswp:
+                self._sweeps.inc(nswp, kind=kind)
+        if row["maint_ops"]:
+            self._ops.inc(row["maint_ops"])
+        self._ops_wall += row["maint_ops_wall_s"]
+        self._opw.set(round(self._ops_wall, 6))
+        if row["latency_p50_s"] is not None:
+            self._lat.set(row["latency_p50_s"], q="p50")
+            self._lat.set(row["latency_p99_s"], q="p99")
+        n_lat = row.get("latency_count", 0)
+        if n_lat:
+            self._slo.set(round(row["slo_violations"] / n_lat, 6))
+        self._occ.set(row["occupancy_serve"], side="serve")
+        self._occ.set(row["occupancy_maint"], side="maint")
+        if row["coverage"] is not None:
+            self._cov.set(row["coverage"])
+
+
 def resident_summary(report: dict) -> dict:
     """Derive the resident loop's headline aggregates from a
     :func:`~opendht_tpu_torch.models.serve.serve_resident` report — the
@@ -366,3 +438,49 @@ def resident_summary(report: dict) -> dict:
         "exchange_rows": rows,
         "exchange_mb": rows * xchg["row_bytes"] / 1e6,
     }
+
+
+class ResidentPlane:
+    """Resident serve-loop gauges on the registry (``prefix``
+    defaults to ``dht_resident``): counters for macro iterations,
+    device rounds, ring lifecycle events (enqueued / shed) and routed-
+    exchange rows, plus gauges for the host-orchestration share, the
+    drain-blocked (non-overlapped) share and the ring depth — the
+    Prometheus face of :func:`resident_summary`."""
+
+    def __init__(self, registry: MetricsRegistry,
+                 prefix: str = "dht_resident"):
+        self.registry = registry
+        c, g = registry.counter, registry.gauge
+        self._iters = c(f"{prefix}_macro_iterations_total",
+                        "Resident macro steps dispatched")
+        self._rounds = c(f"{prefix}_device_rounds_total",
+                         "Lookup rounds run inside resident programs")
+        self._ring = c(f"{prefix}_ring_events_total",
+                       "Request-ring lifecycle events", ("event",))
+        self._xchg = c(f"{prefix}_exchange_rows_total",
+                       "Routed-exchange rows", ("leg",))
+        self._orch = g(f"{prefix}_host_orchestration_ratio",
+                       "Host share of the serve wall")
+        self._blocked = g(f"{prefix}_drain_blocked_ratio",
+                          "Non-overlapped drain share of the wall")
+        self._depth = g(f"{prefix}_ring_depth",
+                        "Device ring backlog", ("stat",))
+
+    def publish_run(self, report: dict) -> None:
+        r = report["resident"]
+        self._iters.inc(r["iterations"])
+        self._rounds.inc(r["device_rounds"])
+        self._ring.inc(r["ring_enqueued"], event="enqueued")
+        if r["ring_shed"]:
+            self._ring.inc(r["ring_shed"], event="shed")
+        xchg = r["exchange"]
+        if xchg["rows_init"]:
+            self._xchg.inc(xchg["rows_init"], leg="init")
+        if xchg["rows_round"]:
+            self._xchg.inc(xchg["rows_round"], leg="round")
+        s = resident_summary(report)
+        self._orch.set(round(s["host_orchestration_frac"], 6))
+        self._blocked.set(round(s["overlap_frac"], 6))
+        self._depth.set(r["ring_depth_mean"], stat="mean")
+        self._depth.set(r["ring_depth_max"], stat="max")

@@ -1,7 +1,6 @@
 """Batched 160-bit XOR metric ops over packed id matrices (PyTorch).
 
-Counterpart of ``opendht_tpu/ops/xor_metric.py``, restricted to what
-the lookup engine uses.  Ids are ``[..., 5]`` int64 tensors holding
+Counterpart of ``opendht_tpu/ops/xor_metric.py``.  Ids are ``[..., 5]`` int64 tensors holding
 big-endian u32 limbs (limb 0 = id bytes 0-3); first-limb distances
 ``d0 = limb0(id ^ target)`` are int64 in u32 range (see
 :mod:`opendht_tpu_torch.ops.u32`).  Node indices are int32, ``-1`` for
@@ -10,7 +9,11 @@ an empty slot.
 The round merge's plain version (:func:`rank_merge_round_d0`) and the
 two-pass sorted merge it is pinned to (:func:`merge_shortlists_d0`)
 live here; the CUDA kernel that replaces the rank merge on the card is
-:func:`opendht_tpu_torch.ops.kernels.merge_round`.
+:func:`opendht_tpu_torch.ops.kernels.merge_round`.  Off the engine's
+path, kept for parity with the JAX module: :func:`xor_ids`,
+:func:`common_bits32`, :func:`common_bits`, the plane k-closest
+(:func:`closest_nodes_batched_plane`), :func:`lex_searchsorted` and the
+exact 5-limb :func:`merge_shortlists`.
 """
 
 from __future__ import annotations
@@ -21,6 +24,32 @@ from .u32 import U32_MAX, as_i32, as_u32, lexsort
 from .u32 import prefix_len32 as prefix_len32  # noqa: F401 (re-export)
 
 N_LIMBS = 5
+HASH_BITS = 160
+
+# Sentinel id limb: an invalid candidate's id reads all-ones (and its
+# index -1, so equal-distance dedup never confuses it with a node).
+SENTINEL_LIMB = U32_MAX
+
+
+def xor_ids(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Element-wise XOR of packed ids, broadcasting."""
+    return a ^ b
+
+
+def common_bits32(a0: torch.Tensor, b0: torch.Tensor) -> torch.Tensor:
+    """Common-prefix length from the first limbs only, capped at 32."""
+    return prefix_len32(a0 ^ b0)
+
+
+def common_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Length of the common bit-prefix of two packed ids ``[..., 5]``
+    (``InfoHash::commonBits``); 160 for equal ids.  int32."""
+    x = a ^ b
+    nz = x != 0
+    first = torch.argmax(nz.to(torch.int8), dim=-1)     # first nonzero
+    limb = torch.gather(x, -1, first[..., None])[..., 0]
+    return torch.where(nz.any(dim=-1), first * 32 + prefix_len32(limb),
+                       HASH_BITS).to(torch.int32)
 
 
 def xor_less(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
@@ -78,6 +107,60 @@ def closest_nodes_batched(ids: torch.Tensor, targets: torch.Tensor,
     return nearest_k_ids(ids, targets, k, valid=valid)
 
 
+def closest_nodes_batched_plane(ids: torch.Tensor, targets: torch.Tensor,
+                                k: int, prefilter: int = 32,
+                                valid: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """Plane-based k-closest (the JAX package's CPU path): the best
+    ``prefilter`` rows by first-limb distance over an explicit ``[L,N]``
+    plane (ties to the lower index, as ``lax.top_k``), then an exact
+    5-limb sort of that shortlist.  Excluded rows (``valid`` false) that
+    reach the shortlist read the all-ones sentinel id and index -1, so
+    they sort at the sentinel's distance, not last: the result agrees
+    with :func:`closest_nodes_batched` wherever at least ``prefilter``
+    rows are valid.  ``[L,k]`` int32."""
+    d0 = ids[None, :, 0] ^ targets[:, 0:1]                       # [L,N]
+    # ~d0 shifted into int32 range (the JAX package's sign-bit flip):
+    # nearer = larger; an excluded row takes int32's minimum, which the
+    # farthest valid row (d0 all-ones) shares.
+    surro = (d0 ^ U32_MAX) - 2**31
+    if valid is not None:
+        surro = torch.where(valid[None, :], surro, -2**31)
+    _, order = torch.sort(surro, dim=1, descending=True, stable=True)
+    short = order[:, :prefilter]                                 # [L,P]
+    cand = ids[short]                                            # [L,P,5]
+    short = short.to(torch.int32)
+    if valid is not None:
+        inval = ~valid[short.long()]
+        cand = torch.where(inval[..., None], SENTINEL_LIMB, cand)
+        short = torch.where(inval, -1, short)
+    _, sidx = sort_by_distance(cand, targets, short)
+    return sidx[:, :k]
+
+
+def lex_searchsorted(sorted_ids: torch.Tensor, queries: torch.Tensor,
+                     side: str = "left") -> torch.Tensor:
+    """Binary search over lexicographically sorted packed ids
+    ``[N,5]`` for queries ``[...,5]`` → insertion positions (int32),
+    like ``np.searchsorted`` with the 160-bit comparator."""
+    n = sorted_ids.shape[0]
+    steps = max(1, (n - 1).bit_length() + 1) if n > 1 else 1
+    batch = queries.shape[:-1]
+    lo = torch.zeros(batch, dtype=torch.int64, device=queries.device)
+    hi = torch.full(batch, n, dtype=torch.int64, device=queries.device)
+    for _ in range(steps):
+        mid = (lo + hi) // 2
+        mid_ids = sorted_ids[mid.clamp(0, n - 1)]
+        if side == "left":
+            go_right = lex_less(mid_ids, queries)
+        else:
+            go_right = ~lex_less(queries, mid_ids)
+        go_right = go_right & (lo < hi)
+        lo, hi = (torch.where(go_right, mid + 1, lo),
+                  torch.where(go_right, hi, torch.where(lo < hi, mid, hi)))
+    return lo.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # two-pass sorted merge (the semantic pin)
 # ---------------------------------------------------------------------------
@@ -127,6 +210,33 @@ def merge_shortlists_d0(cand_d0: torch.Tensor, cand_idx: torch.Tensor,
     f_idx = as_i32(f_idx_u)
     f_q = f_q & (f_idx >= 0)
     return f_idx[:, :keep], f_d0[:, :keep], f_q[:, :keep]
+
+
+def merge_shortlists(target: torch.Tensor, cand_ids: torch.Tensor,
+                     cand_idx: torch.Tensor, cand_queried: torch.Tensor,
+                     keep: int):
+    """Merge + dedup shortlists by exact 160-bit XOR distance
+    (``Search::insertNode``'s sorted insert and trim): ``target [L,5]``,
+    ``cand_ids [L,C,5]``, ``cand_idx [L,C]`` int32 (-1 = empty),
+    ``cand_queried [L,C]``.  Queried copies of an id win its dedup.
+    Returns ``(idx [L,keep], ids [L,keep,5], queried [L,keep])``."""
+    invalid = cand_idx < 0
+    ids_m = torch.where(invalid[..., None], SENTINEL_LIMB, cand_ids)
+    keys = _dist_keys(ids_m, target)
+    limbs = [ids_m[..., i] for i in range(N_LIMBS)]
+    s_keys, s_q, s_pay, dup = _group_queried_first(
+        keys, cand_queried, limbs + [cand_idx])
+    s_idx = s_pay[N_LIMBS]
+    dup = dup | (s_idx < 0)
+    s_idx = torch.where(dup, -1, s_idx)
+    limbs2 = [torch.where(dup, SENTINEL_LIMB, s_pay[i])
+              for i in range(N_LIMBS)]
+    out2 = _dedup_pushback_sort(s_keys, dup, (dup.to(torch.int64),),
+                                limbs2 + [s_idx, s_q])
+    f_ids = torch.stack(out2[N_LIMBS + 1:2 * N_LIMBS + 1], dim=-1)
+    f_idx, f_q = out2[2 * N_LIMBS + 1], out2[2 * N_LIMBS + 2]
+    f_q = f_q & (f_idx >= 0)
+    return f_idx[:, :keep], f_ids[:, :keep], f_q[:, :keep]
 
 
 # ---------------------------------------------------------------------------

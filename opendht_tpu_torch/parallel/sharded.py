@@ -318,7 +318,8 @@ def sharded_lookup_init(swarm: Swarm, cfg: SwarmConfig,
                         targets: torch.Tensor, mesh: Mesh,
                         origins: torch.Tensor,
                         skip: torch.Tensor | None = None,
-                        exchange: dict | None = None) -> LookupState:
+                        exchange: dict | None = None, *,
+                        local_respond: bool = False) -> LookupState:
     """The routed seed exchange (uncapped) for this rank's rows.  Rows
     marked ``skip`` have their origin blanked to -1, so they never ride
     the ``all_to_all`` (how a cache hit stays off it); the other rows
@@ -326,8 +327,9 @@ def sharded_lookup_init(swarm: Swarm, cfg: SwarmConfig,
     that rode it (:func:`_route_respond`)."""
     if skip is not None:
         origins = torch.where(skip, -1, origins)
-    respond_init, _ = _make_responders(mesh, cfg, float("inf"), False,
-                                       swarm, init_exchange=exchange)
+    respond_init, _ = _make_responders(mesh, cfg, float("inf"),
+                                       local_respond, swarm,
+                                       init_exchange=exchange)
     return init_impl(swarm.ids, respond_init, cfg, targets, origins)
 
 
@@ -335,12 +337,17 @@ def sharded_lookup_step(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
                         mesh: Mesh, capacity_factor: float = 2.0, *,
                         local_respond: bool = False,
                         cap_nq: int | None = None, rnd=None,
-                        merge_w: int | None = None) -> LookupState:
+                        merge_w: int | None = None,
+                        exchange: dict | None = None) -> LookupState:
     """One routed round on this rank's rows (``rnd`` for the lifecycle
     plane; ``cap_nq`` pins the capacity provisioning of a truncated
-    dispatch to the full batch)."""
+    dispatch to the full batch; ``exchange`` accumulates the
+    solicitations that rode the round's ``all_to_all``).  Every
+    formulation's round goes through here, so the cost ledger's
+    ``sharded.sharded_lookup_step`` row sees each routed round."""
     _, respond = _make_responders(mesh, cfg, capacity_factor,
-                                  local_respond, swarm, cap_nq)
+                                  local_respond, swarm, cap_nq,
+                                  exchange=exchange)
     return step_impl(swarm.ids, swarm.alive, respond, cfg, st, rnd=rnd,
                      merge_w=merge_w)
 
@@ -350,13 +357,13 @@ def _lookup_while(mesh, swarm, cfg, targets, origins, capacity_factor,
     """The while formulation: after the init, one round per loop trip
     while the mesh's pending count (an ``all_reduce`` a round) is
     positive, up to ``max_steps`` rounds."""
-    respond_init, respond = _make_responders(mesh, cfg, capacity_factor,
-                                             local_respond, swarm,
-                                             exchange=exchange)
-    st = init_impl(swarm.ids, respond_init, cfg, targets, origins)
+    st = sharded_lookup_init(swarm, cfg, targets, mesh, origins,
+                             local_respond=local_respond)
     it = 0
     while it < cfg.max_steps and _pending(mesh, st) > 0:
-        st = step_impl(swarm.ids, swarm.alive, respond, cfg, st)
+        st = sharded_lookup_step(swarm, cfg, st, mesh, capacity_factor,
+                                 local_respond=local_respond,
+                                 exchange=exchange)
         it += 1
     return LookupResult(found=_finalize(swarm.ids, st, cfg), hops=st.hops,
                         done=st.done)
@@ -496,10 +503,8 @@ def sharded_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
             stats["formulation"] = "while"
         return _lookup_while(mesh, swarm, cfg, targets, origins,
                              capacity_factor, local_respond, exchange)
-    respond_init, respond = _make_responders(mesh, cfg, capacity_factor,
-                                             local_respond, swarm,
-                                             exchange=exchange)
-    st = init_impl(swarm.ids, respond_init, cfg, targets, origins)
+    st = sharded_lookup_init(swarm, cfg, targets, mesh, origins,
+                             local_respond=local_respond)
     if track_lifecycle:
         st = init_lifecycle(st)
     rnd_of = (lambda r: r) if track_lifecycle else (lambda r: None)
@@ -507,8 +512,10 @@ def sharded_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
         if stats is not None:
             stats["formulation"] = "burst"
         st = run_burst_loop(
-            lambda s, r: step_impl(swarm.ids, swarm.alive, respond, cfg, s,
-                                   rnd=rnd_of(r)),
+            lambda s, r: sharded_lookup_step(
+                swarm, cfg, s, mesh, capacity_factor,
+                local_respond=local_respond, rnd=rnd_of(r),
+                exchange=exchange),
             st, cfg, done_of=_done_everywhere(mesh))
         if track_lifecycle and stats is not None:
             stats["admitted_round"] = st.admitted_round
@@ -516,9 +523,6 @@ def sharded_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
         return LookupResult(found=_finalize(swarm.ids, st, cfg),
                             hops=st.hops, done=st.done)
 
-    _, respond = _make_responders(mesh, cfg, capacity_factor, local_respond,
-                                  swarm, cap_nq=ll * cfg.alpha,
-                                  exchange=exchange)
     l = ll * d
     order = torch.arange(mesh.rank * ll, (mesh.rank + 1) * ll,
                          device=mesh.device)
@@ -535,8 +539,10 @@ def sharded_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
     while rounds < cfg.max_steps:
         n = min(burst, cfg.max_steps - rounds)
         for _ in range(n):
-            sub = step_impl(swarm.ids, swarm.alive, respond, cfg, sub,
-                            rnd=rnd_of(rounds), merge_w=merge_w)
+            sub = sharded_lookup_step(
+                swarm, cfg, sub, mesh, capacity_factor,
+                local_respond=local_respond, cap_nq=ll * cfg.alpha,
+                rnd=rnd_of(rounds), merge_w=merge_w, exchange=exchange)
             rounds += 1
             row_rounds += w * d
         if w not in widths:

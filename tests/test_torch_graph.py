@@ -3,7 +3,10 @@ equals the eager body step for step (the output, state, rings and
 cache), on the K1 and the fused engine, and the closed-loop replay
 through a graph equals ``lookup``; the mesh resident engine on one rank
 over NCCL captures its macro step, collectives included, equal to the
-eager body, and its replay equals ``sharded_lookup(compact=False)``.  Every test needs a CUDA card and
+eager body, and its replay equals ``sharded_lookup(compact=False)``;
+with the cost ledger's wrappers on, a capture is unchanged (the wrappers
+forward while the stream captures) and each replay is one
+``serve._resident_replay`` row.  Every test needs a CUDA card and
 skips without one; none imports JAX (run them on the card with
 ``--noconftest``)."""
 
@@ -169,3 +172,55 @@ def test_sharded_resident_graph_equals_eager(cache_slots, tmp_path):
         assert _same(res, look) and int(out.xchg_init_rows) == l
     finally:
         mesh.close()
+
+
+@pytest.mark.cuda
+def test_ledger_forwards_under_capture():
+    """Two engines on one plan, one with ``CostLedger.instrument(
+    barrier=True)`` on around its capture and replays: every output,
+    state and ring equal; the capture was counted as one build; the
+    eager pass before the capture is one ``serve._resident_core`` row
+    and each replay one ``serve._resident_replay`` row."""
+    from opendht_tpu_torch.obs import ledger as lg
+    dev = _need_card()
+    cfg, swarm = _swarm(dev)
+    gen = torch.Generator().manual_seed(3)
+    pool = torch.randint(0, 2**32, (32, 5), generator=gen)
+    plan = []
+    for step, n_new in enumerate([64, 40, 0, 64]):
+        plan.append((pool[torch.randint(0, 32, (ADMIT,), generator=gen)],
+                     torch.arange(step * ADMIT, (step + 1) * ADMIT,
+                                  dtype=torch.int32),
+                     torch.zeros(ADMIT, dtype=torch.int32),
+                     torch.randint(0, N_NODES, (ADMIT,), generator=gen,
+                                   dtype=torch.int32), n_new))
+
+    def drive(eng):
+        st, rings, outs = eng.empty(), eng.empty_rings(), []
+        for step, (k, r, c, o, n_new) in enumerate(plan):
+            st, rings, out = eng.macro_step(st, rings, k.numpy(), r.numpy(),
+                                            c.numpy(), o.numpy(), n_new,
+                                            2 * step)
+            outs.append(eng.read_out(out))
+            outs.append([x.clone() for x in (*st, *rings)
+                         if isinstance(x, torch.Tensor)])
+        return outs
+
+    plain = sv.ResidentServeEngine(swarm, cfg, slots=SLOTS, admit_cap=ADMIT,
+                                   device=dev)
+    plain.warm_resident()
+    want = drive(plain)
+    led = lg.CostLedger()
+    eng = sv.ResidentServeEngine(swarm, cfg, slots=SLOTS, admit_cap=ADMIT,
+                                 device=dev)
+    n0 = lg.step_cache_size()
+    with led.instrument(barrier=True):
+        eng.warm_resident()
+        n1 = lg.step_cache_size()
+        got = drive(eng)
+    assert all(_same(a, b) for a, b in zip(want, got))
+    assert n1 - n0 == 1 and lg.step_cache_size() == n1
+    rows = {k: r["calls"] for k, r in led.kernels.items() if r["calls"]}
+    assert rows == {"serve._resident_core": 1,
+                    "serve._resident_replay": len(plan)}
+    assert eng.replays == len(plan)

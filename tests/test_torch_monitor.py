@@ -173,6 +173,19 @@ def test_monitor_sweeps_equal(faults, world):
                                                     et.bucket_counts))
     assert "coverage" not in off.records[-1]
     assert sum(r["lag_count"] for r in et.records) > 0
+    # Each package's records through its SwarmHealthPlane: one text.
+    from opendht_tpu.utils import metrics as jmet
+    from opendht_tpu_torch.utils import metrics as tmet
+    texts = []
+    for h, met, eng in ((jh, jmet, ej), (th, tmet, et)):
+        reg = met.MetricsRegistry()
+        plane = h.SwarmHealthPlane(reg)
+        for rec in eng.records:
+            plane.publish_sweep(rec)
+        plane.publish_density(eng.bucket_counts[-1])
+        texts.append(reg.render_prometheus())
+        assert reg.get("dht_swarm_sweeps_total").get() == len(eng.records)
+    assert texts[0] == texts[1]
     # mesh= is ported (tests/test_torch_sharded_serve.py runs its sweeps):
     # the engine takes the mesh's device and sweeps at least its width.
     from opendht_tpu_torch.parallel.mesh import Mesh

@@ -295,6 +295,36 @@ def schedule():
     return serve_schedule()
 
 
+def assert_planes_same(rj, rt, max_steps):
+    """Each package's report published as ``bench.py --mode serve``
+    publishes a resident run — a ``LatencyPlane`` by class, the hop
+    histogram and the ``ResidentPlane`` — renders the same text, and the
+    plane's count and violation ratio match the report."""
+    from opendht_tpu.obs import latency as jl
+    from opendht_tpu.obs import timeline as jt
+    from opendht_tpu.utils import metrics as jm
+    from opendht_tpu_torch.obs import latency as tl
+    from opendht_tpu_torch.obs import timeline as tt
+    from opendht_tpu_torch.utils import metrics as tm
+    texts, planes = [], []
+    for rep, lat, tl_, met in ((rj, jl, jt, jm), (rt, tl, tt, tm)):
+        reg = met.MetricsRegistry()
+        plane = lat.LatencyPlane(reg, "dht_serve_request", ("klass",),
+                                 slo_target_s=0.01)
+        for sec, k in zip(rep["latency_s"], rep["klass"]):
+            plane.observe(float(sec), klass=str(k))
+        lat.publish_hop_histogram(reg, np.bincount(
+            np.clip(rep["hops"], 0, max_steps), minlength=max_steps + 1))
+        tl_.ResidentPlane(reg).publish_run(rep)
+        texts.append(reg.render_prometheus())
+        planes.append(plane)
+    assert texts[0] == texts[1]
+    n = sum(c for _k, (_b, _s, c) in planes[1].hist.snapshot())
+    assert n == rt["completed"] == len(rt["latency_s"])
+    assert planes[1].violation_ratio == float(
+        np.mean(np.asarray(rt["latency_s"]) > 0.01))
+
+
 @pytest.mark.parametrize("form", list(SERVE_FORMS))
 def test_serve_resident_equal(form, world, schedule):
     """Whole reports under the virtual clock — every array and scalar,
@@ -315,6 +345,7 @@ def test_serve_resident_equal(form, world, schedule):
                            admission=pol(ts),
                            origins_of=jax_admission_origins(world[0], KEY))
     assert_reports_same(rj, rt, f"resident report ({form})")
+    assert_planes_same(rj, rt, et.cfg.max_steps)
     assert set(rt["layer_walls_s"]) == {"dispatch", "drain_blocked", "sleep",
                                         "host"}
     res = rt["resident"]

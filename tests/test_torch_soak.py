@@ -9,8 +9,11 @@ arms), scan-heavy over a PHT index, chunk-heavy — with their
 admission origins, and every ``maint_key`` fold: maintenance origins,
 kill and heal draws, the chunked station's origins) are handed across;
 the initial store and index are JAX's, carried over with ``convert``.
-The loop refuses what it cannot serve, and a port-made
-``swarm_soak_trace`` artifact passes JAX's ``check_soak_obj``."""
+The read-heavy on arm runs both loops with a ``LatencyPlane`` labelled
+by ``op`` (and publishes its timeline through a ``SoakPlane``): the
+rendered registries are equal.  The loop refuses what it cannot serve,
+and a port-made ``swarm_soak_trace`` artifact passes JAX's
+``check_soak_obj``."""
 
 import hashlib
 import struct
@@ -29,7 +32,9 @@ from opendht_tpu.models import serve as js
 from opendht_tpu.models import soak as jk
 from opendht_tpu.models import storage as jst
 from opendht_tpu.models import swarm as jsw
+from opendht_tpu.obs import latency as jlat
 from opendht_tpu.obs import timeline as jtl
+from opendht_tpu.utils import metrics as jmet
 from opendht_tpu_torch import convert
 from opendht_tpu_torch.models import index as ti
 from opendht_tpu_torch.models import monitor as tm
@@ -37,7 +42,9 @@ from opendht_tpu_torch.models import serve as tsv
 from opendht_tpu_torch.models import soak as tk
 from opendht_tpu_torch.models import storage as tst
 from opendht_tpu_torch.obs import health as th
+from opendht_tpu_torch.obs import latency as tlat
 from opendht_tpu_torch.obs import timeline as ttl
+from opendht_tpu_torch.utils import metrics as tmet
 
 from torch_port_cases import (SERVE_ADMIT, SERVE_SLOTS, assert_same,
                               jax_key_pool, jax_swarm, patch_index_widths,
@@ -213,19 +220,30 @@ def build_pair(world, *, monitor=True, scan=False, chunk=False):
 SCENARIO = ((0.3, "churn", 0.05), (0.55, "outage", 0.02))
 
 
-def run_pair(soak_j, soak_t, sched, maintenance=True, scenario=()):
+def run_pair(soak_j, soak_t, sched, maintenance=True, scenario=(),
+             planes=None):
     """Both loops on one schedule under fresh virtual clocks, each with
-    a timeline → ``(report_j, report_t, timeline_j, timeline_t)``."""
+    a timeline → ``(report_j, report_t, timeline_j, timeline_t)``.  With
+    a ``planes`` dict, each loop also observes into a
+    ``LatencyPlane("dht_soak_request", ("op",))`` of its own package's
+    registry, left in ``planes["j"]`` / ``planes["t"]``."""
     (ts, keys, klass, ops, lo, hi), (ts2, keys2, _k, ops2, lo2, hi2) = sched
     assert np.array_equal(keys, keys2) and np.array_equal(ops, ops2)
     kw = dict(klass=klass, ops=ops, scan_lo=lo, scan_hi=hi, burst=2,
               duration=float(ts[-1]), maintenance=maintenance)
+    lat = {}
+    if planes is not None:
+        for side, met, mod in (("j", jmet, jlat), ("t", tmet, tlat)):
+            planes[side] = mod.LatencyPlane(met.MetricsRegistry(),
+                                            "dht_soak_request", ("op",))
+            lat[side] = dict(latency_plane=planes[side])
     c, s = virtual_clock()
     tlj = jtl.SoakTimeline(SOAK_CFG["interval_s"], SERVE_SLOTS,
                            slo_target_s=0.25)
     rj = jk.soak_open_loop(
         soak_j, ts, keys, ADMIT_KEY, timeline=tlj, clock=c, sleep=s,
-        scenario=tuple(jk.ScenarioEvent(*e) for e in scenario), **kw)
+        scenario=tuple(jk.ScenarioEvent(*e) for e in scenario),
+        **lat.get("j", {}), **kw)
     c, s = virtual_clock()
     tlt = ttl.SoakTimeline(SOAK_CFG["interval_s"], SERVE_SLOTS,
                            slo_target_s=0.25)
@@ -234,7 +252,8 @@ def run_pair(soak_j, soak_t, sched, maintenance=True, scenario=()):
         soak_t, ts, keys, timeline=tlt, clock=c, sleep=s,
         origins_of=admission_origins(soak_t),
         scenario=tuple(tk.ScenarioEvent(*e) for e in scenario),
-        on_event=lambda ev, now: fired.append((ev.t, ev.kind, now)), **kw)
+        on_event=lambda ev, now: fired.append((ev.t, ev.kind, now)),
+        **lat.get("t", {}), **kw)
     # The hook sees each event once, in order, at or after its second.
     assert [f[:2] for f in fired] == [e[:2] for e in sorted(scenario)]
     assert all(now >= t for t, _k, now in fired)
@@ -448,14 +467,16 @@ def read_heavy(world):
     and port."""
     sched = schedule(write=0.05)
     on = build_pair(world)
-    out_on = run_pair(*on, sched, scenario=SCENARIO)
+    planes = {}
+    out_on = run_pair(*on, sched, scenario=SCENARIO, planes=planes)
     off = build_pair(world, monitor=False)
     out_off = run_pair(*off, sched, maintenance=False, scenario=SCENARIO)
-    return sched, on, out_on, off, out_off
+    return sched, on, out_on, off, out_off, planes
 
 
 def test_read_heavy_reports_equal(read_heavy):
-    _, on, (rj, rt, tlj, tlt), off, (rj2, rt2, tlj2, tlt2) = read_heavy
+    _, on, (rj, rt, tlj, tlt), off, (rj2, rt2, tlj2, tlt2), planes = \
+        read_heavy
     assert_soak_same(rj, rt, *on, "read-heavy on")
     assert_soak_same(rj2, rt2, *off, "read-heavy off")
     assert rt["repub_sweeps"] and rt["monitor_sweeps"] and rt["maint_ops"]
@@ -475,6 +496,34 @@ def test_read_heavy_reports_equal(read_heavy):
     with pytest.raises(ValueError, match="interval"):
         ttl.interference_ledger(tlt.to_obj(),
                                 dict(tlt2.to_obj(), interval_s=1.0))
+    # The latency plane saw every serve completion, labelled by op, and
+    # renders as JAX's; the timeline's rows publish equally through a
+    # SoakPlane.
+    pj, pt = planes["j"], planes["t"]
+    assert pj.registry.render_prometheus() == pt.registry.render_prometheus()
+    assert pj.registry.to_dict() == pt.registry.to_dict()
+    n_obs = sum(n for _k, (_c, _s, n) in pt.hist.snapshot())
+    assert n_obs == rt["completed"] > 0
+    lats = np.asarray(rt["latency_s"])
+    assert pt.violation_ratio == pj.violation_ratio == \
+        float(np.mean(lats > pt.slo_target_s))
+    assert pt.burn_rate == pj.burn_rate
+    for q in (0.5, 0.99):
+        assert pt.quantile(q, op="read") == pj.quantile(q, op="read")
+    reg_j, reg_t = jmet.MetricsRegistry(), tmet.MetricsRegistry()
+    plane_j, plane_t = jtl.SoakPlane(reg_j), ttl.SoakPlane(reg_t)
+    for rj_row, rt_row in zip(tlj.rows, tlt.rows):
+        plane_j.publish_interval(rj_row)
+        plane_t.publish_interval(rt_row)
+    assert reg_j.render_prometheus() == reg_t.render_prometheus()
+    # The counters book the sweeps closed inside the loop; one still
+    # open when the schedule drains closes after it, at elapsed_s.
+    sweeps = reg_t.get("dht_soak_sweeps_total")
+    end = round(rt["elapsed_s"], 4)
+    for kind in ("repub", "monitor"):
+        recs = rt[f"{kind}_sweeps"]
+        assert sweeps.get(kind=kind) == sum(r["finished_t"] != end
+                                            for r in recs) > 0
 
 
 def test_scan_heavy_report_equal(world, patched):
@@ -502,10 +551,10 @@ def test_chunk_heavy_report_equal(world):
                                   "scan-no-index", "chunk-no-station",
                                   "no-maintenance-slot"])
 def test_soak_open_loop_rejects(world, case):
-    """What the loop cannot serve is refused before the clock starts: the
-    Prometheus latency plane (not ported), a write, scan or chunked
-    request without its store, index or station, and a maintenance
-    share that reserves no whole slot."""
+    """What the loop cannot serve is refused before the clock starts: a
+    latency plane without ``observe``, a write, scan or chunked request
+    without its store, index or station, and a maintenance share that
+    reserves no whole slot."""
     sw, _cfg, cfg_t = world
     scfg = tst.StoreConfig(slots=4, listen_slots=4, max_listeners=64)
     store = (tst.empty_store(cfg_t.n_nodes, scfg, "cpu")
@@ -520,8 +569,7 @@ def test_soak_open_loop_rejects(world, case):
               scan_hi=np.zeros(4, np.int64), clock=virtual_clock()[0])
     if case == "latency-plane":
         kw["latency_plane"] = object()
-    err = NotImplementedError if case == "latency-plane" else ValueError
-    with pytest.raises(err):
+    with pytest.raises(ValueError):
         tk.soak_open_loop(soak, np.linspace(0.0, 0.1, 4),
                           np.zeros((4, 5), np.uint32), **kw)
 
@@ -532,8 +580,8 @@ def test_port_artifact_passes_check_soak_obj(world, read_heavy):
     caught."""
     from opendht_tpu.tools.check_trace import check_soak_obj
     from opendht_tpu_torch.utils.metrics import Histogram
-    _, (_sj, soak), (_rj, rep, _tlj, tl), _off, (_r2, rep_off, _t2, tl_off) \
-        = read_heavy
+    _, (_sj, soak), (_rj, rep, _tlj, tl), _off, (_r2, rep_off, _t2, tl_off), \
+        _planes = read_heavy
     cfg = world[1]
     pk = torch.from_numpy(np.asarray(jax.random.bits(
         jax.random.PRNGKey(11), (PUTS, 5), jnp.uint32)).astype(np.int64))

@@ -152,3 +152,105 @@ def test_u8_u16_boundary_widths(c_wide):
                                    (fi, fd, fq, ri, rd)), keep)
     assert_same(want, got, f"boundary C={c_wide}")
     assert int((got[0][:, -16:] >= 0).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# off the engine's path: xor_ids, common bits, the plane k-closest,
+# lex_searchsorted and the exact 5-limb merge
+# ---------------------------------------------------------------------------
+
+def test_xor_ids_and_common_bits():
+    assert (tx.HASH_BITS, tx.SENTINEL_LIMB) == (jx.HASH_BITS,
+                                                int(jx.SENTINEL_LIMB))
+    a, b = _ids(20, 300), _ids(21, 300)
+    b[:40] = a[:40]                                  # equal: 160
+    for i in range(5):                               # first diff in limb i
+        rows = slice(40 + 40 * i, 80 + 40 * i)
+        b[rows, :i] = a[rows, :i]
+        b[rows, i] = a[rows, i] ^ (np.uint32(1) << np.uint32(
+            np.arange(40) % 32))[:40]
+    ja, jb, ta, tb = jnp.asarray(a), jnp.asarray(b), to_torch(a), to_torch(b)
+    assert_same([jx.xor_ids(ja, jb)], [tx.xor_ids(ta, tb)], "xor_ids")
+    assert_same([jx.xor_ids(ja, jb[0])], [tx.xor_ids(ta, tb[0])],
+                "xor_ids broadcast")
+    want = np.asarray(jx.common_bits(ja, jb))
+    got = tx.common_bits(ta, tb)
+    assert got.dtype.is_signed and np.array_equal(want, got.numpy())
+    assert set(got[:40].tolist()) == {160} and got.min() < 32
+    w32 = np.asarray(jx.common_bits32(ja[:, 0], jb[:, 0]))
+    assert np.array_equal(w32, tx.common_bits32(ta[:, 0], tb[:, 0]).numpy())
+
+
+@pytest.mark.parametrize("valid", ["all", "most", "few"])
+def test_closest_nodes_batched_plane(valid):
+    """The plane k-closest equals JAX's, ties and the excluded rows'
+    all-ones sentinel included: with fewer valid rows than the
+    prefilter, excluded rows reach the shortlist as -1 at the
+    sentinel's distance (not last, as the K3 kernel ranks them)."""
+    r = np.random.default_rng(22)
+    ids = _ids(23, 400)
+    ids[100:140, 0] = ids[0, 0]                      # first-limb ties
+    ids[200, 0] = 0xFFFFFFFF
+    tg = _ids(24, 24)
+    tg[:4, 0] = 0                                    # d0 all-ones at row 200
+    few = np.zeros(400, bool)
+    few[r.choice(400, 5, replace=False)] = True      # fewer than k
+    mask = {"all": None, "most": r.random(400) < 0.9, "few": few}[valid]
+    jv = None if mask is None else jnp.asarray(mask)
+    tv = None if mask is None else to_torch(mask)
+    for k, pre in ((8, 32), (3, 16)):
+        want = jx.closest_nodes_batched_plane(jnp.asarray(ids),
+                                              jnp.asarray(tg), k, pre,
+                                              valid=jv)
+        got = tx.closest_nodes_batched_plane(to_torch(ids), to_torch(tg), k,
+                                             pre, valid=tv)
+        assert_same([want], [got], f"plane k={k} valid={valid}")
+    if valid == "few":
+        # The sentinel: excluded rows sort at the all-ones id's distance,
+        # so they can push valid rows past k, where the exact-k kernel's
+        # plain version ranks every excluded row last.
+        from opendht_tpu_torch.ops import kernels
+        got = tx.closest_nodes_batched_plane(to_torch(ids), to_torch(tg), 8,
+                                             32, valid=tv)
+        exact = kernels.nearest_k_ids(to_torch(ids), to_torch(tg), 8,
+                                      valid=tv)
+        assert bool(((exact >= 0).sum(1) == 5).all())
+        assert bool(((got >= 0).sum(1) < 5).any())
+        for a, b in zip(got.tolist(), exact.tolist()):
+            assert {x for x in a if x >= 0} <= set(b)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_lex_searchsorted(side):
+    raw = _ids(25, 257)
+    raw[10:20] = raw[9]                              # duplicate ids
+    srt = np.asarray(jnp.stack(jax.lax.sort(
+        tuple(jnp.asarray(raw[:, i]) for i in range(5)), num_keys=5), -1))
+    q = np.concatenate([srt[::7], _ids(26, 40),
+                        np.zeros((1, 5), np.uint32),
+                        np.full((1, 5), 0xFFFFFFFF, np.uint32)])
+    want = jx.lex_searchsorted(jnp.asarray(srt), jnp.asarray(q), side)
+    got = tx.lex_searchsorted(to_torch(srt), to_torch(q), side)
+    assert_same([want], [got], f"lex_searchsorted {side}")
+    one = srt[:1]
+    assert_same([jx.lex_searchsorted(jnp.asarray(one), jnp.asarray(q), side)],
+                [tx.lex_searchsorted(to_torch(one), to_torch(q), side)],
+                "one row")
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_merge_shortlists_exact(seed):
+    r = np.random.default_rng(30 + seed)
+    ids = _ids(31 + seed, 16 * 40).reshape(16, 40, 5)
+    ids[:, 5:10] = ids[:, 0:5]                       # duplicate ids
+    idx = r.integers(0, 1000, (16, 40)).astype(np.int32)
+    idx[:, 5:10] = idx[:, 0:5]
+    idx[r.random((16, 40)) < 0.2] = -1
+    q = r.random((16, 40)) < 0.3
+    tg = _ids(33, 16)
+    for keep in (14, 40):
+        want = jx.merge_shortlists(jnp.asarray(tg), jnp.asarray(ids),
+                                   jnp.asarray(idx), jnp.asarray(q), keep)
+        got = tx.merge_shortlists(to_torch(tg), to_torch(ids), to_torch(idx),
+                                  to_torch(q), keep)
+        assert_same(want, got, f"merge_shortlists keep={keep}")
