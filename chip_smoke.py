@@ -4,8 +4,9 @@ plane with chunked values, its serve engines (burst, and resident: one
 CUDA graph a macro step), its swarm-health monitor, its PHT index (and
 the host ``Pht`` over ``StoreDht``), its always-on soak engine, its
 table-sharded engines (ranks over ``torch.distributed``), its cost
-ledger and its metrics planes on one CUDA card and hold each of its
-CUDA kernels against its plain PyTorch version.
+ledger and its metrics planes on one CUDA card, its host Kademlia node
+beside them (held to the device engines by the conformance bands), and
+hold each of its CUDA kernels against its plain PyTorch version.
 
 Run from the root of a checkout, on a machine with one NVIDIA card and
 the CUDA toolkit:
@@ -148,7 +149,8 @@ Phases (any failure exits non-zero and prints no result line):
    flush timed first) — conservation per class, no work-class mismatch
    or garbled read, non-empty answers and recall@8 before the first
    fault, the monitor's identities, value survival — and one profiled
-   second of each leg;
+   second of the read-heavy leg (the station legs' profiles were cut for
+   time);
 18. the sharded engines (``parallel/``): card vs CPU at 4,096 nodes over
    2 gloo ranks sharing the card (run after phase 16), each rank running
    every call on the card and on a second gloo group of CPU tensors —
@@ -195,7 +197,7 @@ Phases (any failure exits non-zero and prints no result line):
    get); after ``sharded_serve`` 4 gloo ranks on the card:
    ``sharded_storage_ranks`` (put/get at 1M × 100,000 beside the local
    engine, ``--mode chaos``'s listener lifecycle, ``--mode repub``'s
-   probe and full sweeps, torn chunked rows, an index of 256 drawn
+   probe and full sweeps, torn chunked rows, an index of 128 drawn
    entries with the bench's 64 scans in one batch, and the resident
    engine eager over gloo on the serve schedule);
 19. the monitor at 10M nodes, last (it kills nodes and heals the tables
@@ -220,13 +222,31 @@ Phases (any failure exits non-zero and prints no result line):
    registry export; after the storage path ``repub_profile``
    (``bench.py --mode repub-profile``'s defaults: the rows summing to
    the sweep wall); in ``sharded_path`` the instrumented routed replay
-   (``sharded_ledger``); after ``index_path`` 64 host lookups over
+   (``sharded_ledger``); after ``index_path`` 32 host lookups over
    ``StoreDht.over`` the index cell, each exact against the oracle
    (``store_dht_lookups``); and the planes on legs that already run: a
    ``LatencyPlane`` by op and a ``SoakPlane`` on both read-heavy soak
    arms, a ``LatencyPlane`` by class, the hop histogram and the
    ``ResidentPlane`` on the resident K1 leg, each held against its
-   report.
+   report;
+21. the host node beside the device swarm (``host_path``, before the
+   monitor): a second child (this script with ``--host-child``, started
+   beside the ``--store-dht-child``; no card) runs
+   ``tests/test_conformance.py``'s host legs on the port's host
+   ``Dht`` over its virtual network — ``DhtNetwork(1024, seed=7)``,
+   ``interconnect``, 30 virtual seconds and 200 random-key gets (recall
+   against the brute-force true 8, the searcher's get + find
+   solicitations / 4); 256 nodes, 10 % killed, 45 s, loss 0.15, 96 gets;
+   64 nodes with ``maintain_storage`` through two kill-half cycles — and
+   the ``harness.scenarios`` at their defaults; joined here, then the
+   device halves on the card, each also on the CPU and bit-equal: 1,024
+   nodes × 200 lookups (K1, recall by K3); 2,048 nodes churned 0.10,
+   healed, ``chaos_lookup`` at drop 0.15; 2,048 nodes, 512 values,
+   two cycles of churn 0.5 + heal + ``republish_from`` every node, then
+   a re-get; the conformance bands between the two; then
+   ``python3 -m opendht_tpu_torch.harness.benchmark --swarm`` at its
+   defaults (100,000 nodes × 10,000 lookups) on the card, done 1.0; the
+   native host library's load state (parent and child).
 
 Prints the ``ptxas`` lines of every kernel (registers, shared memory,
 spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
@@ -241,7 +261,8 @@ spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
 ``sharded_resident_replay``, ``sharded_resident_leg``,
 ``sharded_storage_path``, ``sharded_storage_ranks``, ``monitor_sweep``,
 ``monitor_path``, ``store_dht_inserts``, ``ledger_path``,
-``repub_profile``, ``sharded_ledger`` and ``store_dht_lookups`` lines, ``elapsed`` lines between phases, a ``kernels``
+``repub_profile``, ``sharded_ledger``, ``store_dht_lookups``, ``host_leg``,
+``host_scenario``, ``benchmark_swarm`` and ``host_path`` lines, ``elapsed`` lines between phases, a ``kernels``
 JSON line (each row with its
 launches on every path — a graph replay counts the kernels its capture
 recorded — K1's and K2's with their times at the serve shape), the card
@@ -276,6 +297,7 @@ HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+CHILDREN: list = []     # child processes still to stop at exit
 
 
 def log(msg: str) -> None:
@@ -3632,13 +3654,14 @@ def phase_soak_full(cfg, card, failures):
                 failures.append(f"soak leg {name} ({arm_name}): {k_run} not "
                                 f"launched in the run or K3 not in the "
                                 f"recall check")
-            # One profiled second of the leg's traffic on its arm (no
-            # scenario event), after its measured run.
+            # One profiled second of the read-heavy leg's traffic on its
+            # arm (no scenario event), after its measured run; the station
+            # legs' profiles were cut for the script's time limit.
             ts_, kk, klass, ops, lo, hi = sched
             first = ts_ < 1.0
             one = (ts_[first], kk[first], klass[first], ops[first],
                    lo[first], hi[first])
-            if arm_name == "on":
+            if arm_name == "on" and name == "read-heavy":
                 prof[name] = profile_soak(lambda: sk.soak_open_loop(
                     soak, *one[:2], torch.Generator(device=dev).manual_seed(4),
                     klass=one[2], ops=one[3], scan_lo=one[4], scan_hi=one[5],
@@ -4262,7 +4285,7 @@ MESH_CMP_NODES = 4096
 STORE_RANK_NODES = 65_536           # bench.py --mode chaos / repub's nodes
 STORE_RANK_PUTS = 100_000           # bench.py --puts (the sharded leg)
 REPUB_RANGE = 131_072               # the 10M republish's node range (a cut)
-STORE_RANK_INDEX_DRAWN = 256        # the ranks' index entries drawn (a cut)
+STORE_RANK_INDEX_DRAWN = 128        # the ranks' index entries drawn (a cut)
 
 
 def _whole(gen, *shape, hi=2**32):
@@ -5339,7 +5362,7 @@ REPUB_PAIRS = 7                 # timed and attribution sweeps, alternating
                                 # (the bench: --repeat 3 timed, then 1)
 REPUB_KILL = 0.5                # --kill-frac
 STORE_DHT_ENTRIES = 256         # host Pht inserts over StoreDht
-STORE_DHT_LOOKUPS = 64          # host lookups of distinct ranks
+STORE_DHT_LOOKUPS = 32          # host lookups of distinct ranks (a cut)
 
 
 def _phase_rows_violations(rows, total, what, errs, neg_frac=0.0) -> None:
@@ -5783,6 +5806,429 @@ def store_dht_child() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the host node beside the device swarm: tests/test_conformance.py's legs
+# ---------------------------------------------------------------------------
+
+HOST_LOOKUP_NODES = 1024        # test_conformance.py: N_NODES
+HOST_LOOKUPS = 200              # N_LOOKUPS
+HOST_SURV_NODES = 256           # host_lookup_survival's cluster
+HOST_SURV_LOOKUPS = 96          # N_SURV_LOOKUPS
+HOST_MAINT_NODES = 64           # host_maintenance_survival's cluster
+HOST_MAINT_VALS = 96            # N_MAINT_VALS
+DEV_CONF_NODES = 2048           # the device survival / maintenance legs
+SURV_KILL_FRAC = 0.10
+SURV_LOSS = 0.15
+MAINT_KILL_FRAC = 0.5
+MAINT_CYCLES = 2
+
+
+def conf_recall(found_ids, all_ids, target: bytes, k: int = 8) -> float:
+    """Share of the true ``k`` XOR-closest of ``all_ids`` among
+    ``found_ids`` (brute force over the 160-bit ids)."""
+    t = int.from_bytes(target, "big")
+    truth = {bytes(all_ids[i]) for _, i in sorted(
+        (int.from_bytes(bytes(h), "big") ^ t, i)
+        for i, h in enumerate(all_ids))[:k]}
+    return len(truth & {bytes(f) for f in found_ids}) / len(truth)
+
+
+def host_lookup_leg() -> dict:
+    """200 random-key gets through a 1,024-node cluster after
+    ``interconnect`` and 30 virtual seconds: recall against the brute-force
+    true 8, and the searching node's get + find solicitations / 4."""
+    import numpy as np
+    from opendht_tpu_torch.harness.network import DhtNetwork
+    from opendht_tpu_torch.utils.infohash import InfoHash
+
+    t0 = time.perf_counter()
+    c = DhtNetwork(HOST_LOOKUP_NODES, seed=7)
+    c.interconnect()
+    c.run(30.0)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    all_ids = [d.myid for d in c.nodes]
+    recalls, rounds = [], []
+    for _ in range(HOST_LOOKUPS):
+        target = InfoHash(rng.bytes(20))
+        src = c.nodes[int(rng.integers(len(c.nodes)))]
+        before = (src.engine.stats_out.get("get", 0)
+                  + src.engine.stats_out.get("find", 0))
+        done = []
+        src.get(target, lambda vs: True,
+                lambda ok, nodes: done.append([n.id for n in nodes]))
+        c.run_until(lambda: done, timeout=60.0)
+        if not done:
+            raise RuntimeError("a host lookup did not complete")
+        after = (src.engine.stats_out.get("get", 0)
+                 + src.engine.stats_out.get("find", 0))
+        recalls.append(conf_recall(done[0], all_ids, bytes(target)))
+        rounds.append((after - before) / 4.0)
+    return {"nodes": HOST_LOOKUP_NODES, "lookups": HOST_LOOKUPS,
+            "recall": float(np.mean(recalls)),
+            "effort_mean": float(np.mean(rounds)),
+            "effort_p90": float(np.percentile(rounds, 90)),
+            "setup_s": setup_s, "wall_s": time.perf_counter() - t0}
+
+
+def host_survival_leg() -> dict:
+    """256 nodes, 10 % partitioned away, 45 s of maintenance, then 96
+    gets over a 15 %-loss transport: recall against the true 8 alive."""
+    import numpy as np
+    from opendht_tpu_torch.harness.network import DhtNetwork
+    from opendht_tpu_torch.utils.infohash import InfoHash
+
+    t0 = time.perf_counter()
+    c = DhtNetwork(HOST_SURV_NODES, seed=17)
+    c.interconnect()
+    c.run(30.0)
+    rng = np.random.default_rng(23)
+    victims = [d for d in c.nodes if rng.random() < SURV_KILL_FRAC]
+    for v in victims:
+        c.kill(v)
+    c.run(45.0)
+    c.net.loss = SURV_LOSS
+    alive = [d for d in c.nodes if d not in victims]
+    alive_ids = [d.myid for d in alive]
+    recalls = []
+    for _ in range(HOST_SURV_LOOKUPS):
+        target = InfoHash(rng.bytes(20))
+        src = alive[int(rng.integers(len(alive)))]
+        done = []
+        src.get(target, lambda vs: True,
+                lambda ok, nodes: done.append([n.id for n in nodes]))
+        c.run_until(lambda: done, timeout=120.0)
+        if not done:
+            raise RuntimeError("a host lookup did not complete under loss")
+        recalls.append(conf_recall(done[0], alive_ids, bytes(target)))
+    return {"nodes": HOST_SURV_NODES, "killed": len(victims),
+            "lookups": HOST_SURV_LOOKUPS, "loss": SURV_LOSS,
+            "recall": float(np.mean(recalls)),
+            "wall_s": time.perf_counter() - t0}
+
+
+def host_maintenance_leg() -> dict:
+    """64 nodes with ``maintain_storage`` (the maintenance period cut to
+    20 s so full cycles fit the values' TTL): 96 values put, two cycles
+    of a graceful shutdown of half the nodes (the writer in the first),
+    then every value re-got from a survivor."""
+    import numpy as np
+    import opendht_tpu_torch.core.dht as core_dht
+    from opendht_tpu_torch.core.value import Value
+    from opendht_tpu_torch.harness.network import DhtNetwork
+    from opendht_tpu_torch.utils.infohash import InfoHash
+
+    t0 = time.perf_counter()
+    old = core_dht.MAX_STORAGE_MAINTENANCE_EXPIRE_TIME
+    core_dht.MAX_STORAGE_MAINTENANCE_EXPIRE_TIME = 20.0
+    try:
+        c = DhtNetwork(HOST_MAINT_NODES, seed=13)
+        for d in c.nodes:
+            d.config.maintain_storage = True
+        c.interconnect()
+        c.run(20.0)
+        rng = np.random.default_rng(5)
+        writer = c.nodes[0]
+        keys = [InfoHash(rng.bytes(20)) for _ in range(HOST_MAINT_VALS)]
+        for i, h in enumerate(keys):
+            done = []
+            writer.put(h, Value(f"v{i}".encode()),
+                       lambda ok, ns: done.append(ok))
+            c.run_until(lambda: done, timeout=60.0)
+        c.run(5.0)
+        alive = list(c.nodes)
+        for cycle in range(MAINT_CYCLES):
+            doomed = [d for d in alive
+                      if rng.random() < MAINT_KILL_FRAC
+                      or (cycle == 0 and d is writer)]
+            for d in doomed:
+                d.shutdown()
+            c.run(10.0)
+            for d in doomed:
+                c.kill(d)
+            alive = [d for d in alive if d not in doomed]
+            c.run(45.0)
+        reader = alive[-1]
+        found = 0
+        for h in keys:
+            got, done = [], []
+            reader.get(h, lambda vs: got.extend(vs) or True,
+                       lambda ok, ns: done.append(ok))
+            c.run_until(lambda: done, timeout=120.0)
+            found += bool(got)
+    finally:
+        core_dht.MAX_STORAGE_MAINTENANCE_EXPIRE_TIME = old
+    return {"nodes": HOST_MAINT_NODES, "values": HOST_MAINT_VALS,
+            "cycles": MAINT_CYCLES, "survivors": len(alive),
+            "survival": found / HOST_MAINT_VALS,
+            "wall_s": time.perf_counter() - t0}
+
+
+def host_child() -> int:
+    """``--host-child``: the host legs on one CPU thread, one
+    ``host_leg`` line each, then the harness scenarios at their defaults
+    and a ``host_result`` line with every number."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(1)
+    from opendht_tpu_torch import native
+    from opendht_tpu_torch.harness.scenarios import SCENARIOS
+    out: dict = {"native_library": native.available(), "failures": []}
+    print(f"host_native_library_loaded {out['native_library']}",
+          flush=True)
+    for name, fn in (("lookups", host_lookup_leg),
+                     ("survival", host_survival_leg),
+                     ("maintenance", host_maintenance_leg)):
+        try:
+            out[name] = fn()
+        except Exception as e:      # reported as a failure by the parent
+            out["failures"].append(f"host leg {name}: {e!r}")
+            continue
+        print("host_leg " + json.dumps({"leg": name, **out[name]}),
+              flush=True)
+    out["scenarios"] = {}
+    for name, fn in SCENARIOS.items():
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+        except Exception as e:
+            out["failures"].append(f"host scenario {name}: {e!r}")
+            continue
+        res["wall_s"] = time.perf_counter() - t0
+        out["scenarios"][name] = res
+        print("host_scenario " + json.dumps({"scenario": name, **res}),
+              flush=True)
+    print("host_result " + json.dumps(out), flush=True)
+    return 0
+
+
+def start_host():
+    """Start ``host_child`` (this script with ``--host-child``) beside the
+    card-vs-CPU phases, which measure no time; it uses no card and ends
+    inside them."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--host-child"], stdout=subprocess.PIPE,
+                            text=True, cwd=REPO)
+
+
+def join_host(child, failures):
+    """Wait for the host child, log its lines; returns its result (None
+    if it failed)."""
+    out, _ = child.communicate(timeout=900)
+    result = None
+    for line in out.splitlines():
+        if line.startswith("host_result "):
+            result = json.loads(line.split(" ", 1)[1])
+        else:
+            log(line)
+    if child.returncode != 0 or result is None:
+        failures.append(f"the host child exited {child.returncode}")
+        return None
+    failures.extend(result["failures"])
+    return result
+
+
+def device_conformance_legs(dev, failures) -> dict:
+    """The device halves of the three legs, each run on the CPU and on
+    the card from the same CPU draws and compared exactly: 1,024 nodes
+    and 200 lookups; 2,048 nodes churned 0.10, healed, ``chaos_lookup``
+    at drop 0.15; 2,048 nodes, 512 values announced, two cycles of churn
+    0.5 + heal + ``republish_from`` every node, then a re-get.  Recall
+    truth is K3 (``lookup_recall``) on the card."""
+    import torch
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.models import swarm as sw
+
+    out: dict = {}
+    where = {"cpu": torch.device("cpu"), "card": dev}
+
+    def check(what, a, b):
+        same = same_tensors(a, b)
+        log(f"host_path device leg card vs CPU, {what}: "
+            f"{'bit-equal' if same else 'DIFFERENT'}")
+        if not same:
+            failures.append(f"card and CPU differ ({what})")
+
+    # -- lookups ---------------------------------------------------------
+    n, l = HOST_LOOKUP_NODES, HOST_LOOKUPS
+    cfg = sw.SwarmConfig.for_nodes(n, device="cpu")
+    g = torch.Generator().manual_seed(7)
+    base = sw.build_swarm(cfg, g, device="cpu")
+    targets = torch.randint(0, 2**32, (l, 5), generator=g)
+    origins = sw._sample_origins(g, base.alive, l)
+    res = {}
+    for k, d in where.items():
+        s = base.to(d)
+        r = sw.lookup(s, cfg, targets.to(d), origins=origins.to(d), device=d)
+        res[k] = (r, sw.lookup_recall(s, cfg, r, targets.to(d)))
+    check(f"lookups {n} nodes x {l}", res["cpu"], res["card"])
+    r, rec = res["card"]
+    hops = r.hops.double().cpu()
+    out["lookups"] = {"nodes": n, "lookups": l,
+                      "recall": float(rec.double().mean()),
+                      "effort_mean": float(hops.mean()),
+                      "effort_p90": float(torch.quantile(hops, 0.9)),
+                      "done_frac": float(r.done.float().mean())}
+
+    # -- survival: churn + heal + chaos lookups at drop 0.15 ---------------
+    n2 = DEV_CONF_NODES
+    cfg2 = sw.SwarmConfig.for_nodes(n2, device="cpu")
+    g = torch.Generator().manual_seed(31)
+    dead = sw.churn(sw.build_swarm(cfg2, g, device="cpu"), g,
+                    SURV_KILL_FRAC, cfg2)
+    draws = [torch.rand((n2, cfg2.bucket_k), generator=g)
+             for _ in range(cfg2.n_buckets)]
+    targets = torch.randint(0, 2**32, (256, 5), generator=g)
+    origins = sw._sample_origins(g, dead.alive, 256)
+    faults = sw.LookupFaults(drop_frac=SURV_LOSS, seed=3)
+    res = {}
+    for k, d in where.items():
+        s = dead._replace(tables=dead.tables.clone()).to(d)
+        sw.heal_swarm(s, cfg2, lambda b, d=d: draws[b].to(d))
+        o = sw.chaos_lookup(s, cfg2, targets.to(d), faults=faults,
+                            origins=origins.to(d), device=d)
+        res[k] = (s.tables, o, sw.lookup_recall(s, cfg2, o[0],
+                                                targets.to(d)))
+    check(f"survival {n2} nodes: heal tables, chaos lookups, recall",
+          res["cpu"], res["card"])
+    _, o, rec = res["card"]
+    out["survival"] = {"nodes": n2, "killed": int((~dead.alive).sum()),
+                       "lookups": 256, "drop_frac": SURV_LOSS,
+                       "recall": float(rec.double().mean()),
+                       "done_frac": float(o[0].done.float().mean())}
+
+    # -- maintenance: churn + heal + republish_from, then re-get ----------
+    cfg3 = sw.SwarmConfig.for_nodes(n2, device="cpu")
+    g = torch.Generator().manual_seed(21)
+    base = sw.build_swarm(cfg3, g, device="cpu")
+    scfg = stg.StoreConfig(slots=8, listen_slots=2, max_listeners=64)
+    p = 512
+    keys = torch.randint(0, 2**32, (p, 5), generator=g)
+    vals = torch.arange(1, p + 1)
+    world = {k: [base._replace(tables=base.tables.clone()).to(d),
+                 stg.empty_store(n2, scfg, device=d)]
+             for k, d in where.items()}
+    og = sw._sample_origins(g, base.alive, p)
+    for k, d in where.items():
+        w = world[k]
+        w[1], _ = stg.announce(w[0], cfg3, w[1], scfg, keys.to(d),
+                               vals.to(d), torch.ones_like(vals).to(d), 0,
+                               origins=og.to(d), device=d)
+    node_idx = torch.arange(n2, dtype=torch.int32)
+    alive = base.alive
+    for cycle in range(MAINT_CYCLES):
+        alive = alive & (torch.rand((n2,), generator=g) >= MAINT_KILL_FRAC)
+        draws = [torch.rand((n2, cfg3.bucket_k), generator=g)
+                 for _ in range(cfg3.n_buckets)]
+        for k, d in where.items():
+            w = world[k]
+            w[0] = w[0]._replace(alive=alive.to(d))
+            sw.heal_swarm(w[0], cfg3, lambda b, d=d: draws[b].to(d))
+        order, n_live = stg._repub_live(alive, world["cpu"][1], node_idx,
+                                        cfg3, scfg)
+        rows = min(n2 * scfg.slots,
+                   stg.pow2_width(int(n_live), stg._REPUB_COMPACT_FLOOR))
+        og = sw._sample_origins(g, alive, rows)
+        for k, d in where.items():
+            w = world[k]
+            w[1], _ = stg.republish_from(w[0], cfg3, w[1], scfg,
+                                         node_idx.to(d), 1 + cycle,
+                                         origins=og.to(d), device=d)
+    og = sw._sample_origins(g, alive, p)
+    got = {}
+    for k, d in where.items():
+        w = world[k]
+        got[k] = (w[1], stg.get_values(w[0], cfg3, w[1], scfg, keys.to(d),
+                                       origins=og.to(d), device=d))
+    check(f"maintenance {n2} nodes: stores and re-get", got["cpu"],
+          got["card"])
+    res = got["card"][1]
+    ok = res.hit & (res.val == vals.to(dev))
+    out["maintenance"] = {"nodes": n2, "values": p, "cycles": MAINT_CYCLES,
+                          "alive": int(alive.sum()),
+                          "survival": float(ok.float().mean())}
+    return out
+
+
+def conformance_bands(h: dict, d: dict) -> list:
+    """``tests/test_conformance.py``'s bands between the host and the
+    device numbers; returns the violations."""
+    bad = []
+    hr, dr = h["lookups"]["recall"], d["lookups"]["recall"]
+    if not (hr > 0.9 and dr > 0.9 and abs(hr - dr) < 0.08):
+        bad.append(f"lookup recall: host {hr}, device {dr}")
+    he, de = h["lookups"]["effort_mean"], d["lookups"]["effort_mean"]
+    if not (he <= 12 and de <= 12 and he <= 1.5 * max(de, 1)
+            and de <= 1.5 * max(he, 1)):
+        bad.append(f"lookup effort: host {he}, device {de}")
+    hp, dp = h["lookups"]["effort_p90"], d["lookups"]["effort_p90"]
+    if not (hp <= 16 and dp <= 16 and hp <= 2 * max(dp, 1)
+            and dp <= 2 * max(hp, 1)):
+        bad.append(f"lookup effort p90: host {hp}, device {dp}")
+    hs, ds = h["survival"]["recall"], d["survival"]["recall"]
+    if not (hs > 0.85 and ds > 0.9 and abs(hs - ds) < 0.10):
+        bad.append(f"lookup survival: host {hs}, device {ds}")
+    hm, dm = h["maintenance"]["survival"], d["maintenance"]["survival"]
+    if not (dm > 0.95 and hm > 0.9 and abs(hm - dm) < 0.10):
+        bad.append(f"maintenance survival: host {hm}, device {dm}")
+    return bad
+
+
+def phase_host_path(dev, host_proc, card, failures):
+    """The host node beside the device swarm: join the host child, run
+    the device legs (card = CPU), hold the two to the conformance bands,
+    then ``python3 -m opendht_tpu_torch.harness.benchmark --swarm`` at its
+    defaults on the card.  Returns the phase's launches."""
+    import torch
+    from opendht_tpu_torch import native
+    from opendht_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    host = join_host(host_proc, failures)
+    log(f"host_path host child joined after {time.perf_counter() - t0:.1f} "
+        f"s of waiting")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    dev_legs = device_conformance_legs(dev, failures)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    legs_s = time.perf_counter() - t1
+    for k_name in ("merge_round", "nearest_k_ids"):
+        if launches[k_name] <= 0:
+            failures.append(f"{k_name} was not launched on the host path")
+    bad = (["the host legs gave no numbers"] if host is None
+           or any(k not in host for k in ("lookups", "survival",
+                                          "maintenance"))
+           else conformance_bands(host, dev_legs))
+    failures.extend(f"conformance band: {b}" for b in bad)
+    t2 = time.perf_counter()
+    bench = subprocess.run(
+        [sys.executable, "-m", "opendht_tpu_torch.harness.benchmark",
+         "--swarm"], capture_output=True, text=True, cwd=REPO,
+        timeout=600)
+    bench_s = time.perf_counter() - t2
+    swarm_row = None
+    if bench.returncode == 0 and bench.stdout.strip():
+        swarm_row = json.loads(bench.stdout.strip().splitlines()[-1])
+    log("benchmark_swarm " + json.dumps({"rc": bench.returncode,
+                                         "row": swarm_row,
+                                         "wall_s": bench_s, "card": card}))
+    if swarm_row is None or swarm_row.get("done_frac") != 1.0 or set(
+            swarm_row) != {"scenario", "n_nodes", "n_lookups",
+                           "lookups_per_sec", "median_hops", "done_frac"}:
+        failures.append(f"benchmark --swarm: rc {bench.returncode}, row "
+                        f"{swarm_row}, stderr {bench.stderr[-2000:]}")
+    log("host_path " + json.dumps({
+        "host": None if host is None else {
+            k: host.get(k) for k in ("lookups", "survival", "maintenance",
+                                     "native_library")},
+        "device": dev_legs, "bands_ok": not bad, "device_legs_s": legs_s,
+        "native_library_loaded": native.available(),
+        "launches": launches, "card": card}))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5808,9 +6254,13 @@ def main() -> int:
                 log(f"  ptxas {src}: {line.strip()}")
 
     child = start_store_dht()
+    host_proc = start_host()
+    CHILDREN.append(host_proc)
     try:
         cpu_threads = torch.get_num_threads()
-        torch.set_num_threads(max(1, cpu_threads - 1))   # one for the child
+        # One thread for the store child; the host child ends within
+        # about 150 s and shares the cores until then.
+        torch.set_num_threads(max(1, cpu_threads - 1))
         phase_kernels_vs_plain(dev, failures)
         phase_card_vs_cpu(dev, failures)
         phase_chaos_storage_card_vs_cpu(dev, failures)
@@ -5967,6 +6417,8 @@ def main() -> int:
     launches_shs = phase_sharded_serve(card, failures)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_st = phase_sharded_storage_ranks(card, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    launches_h = phase_host_path(dev, host_proc, card, failures)
     # The monitor kills nodes and heals the tables in place: last.
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_m = phase_monitor_full(sw, swarm, cfg, card, failures)
@@ -5976,7 +6428,8 @@ def main() -> int:
                "storage": launches_s, "serve": launches_v,
                "resident": launches_r, "chunked": launches_k,
                "index": launches_i, "soak": launches_so,
-               "monitor": launches_m, "sharded": launches_sh,
+               "monitor": launches_m, "host": launches_h,
+               "sharded": launches_sh,
                "sharded_ranks": launches_shr, "sharded_chaos": launches_shc,
                "sharded_serve": launches_shs,
                "sharded_resident": launches_sr,
@@ -6009,4 +6462,13 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--store-dht-child"]:
         sys.exit(store_dht_child())
-    sys.exit(main())
+    if sys.argv[1:] == ["--host-child"]:
+        sys.exit(host_child())
+    try:
+        rc = main()
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    sys.exit(rc)

@@ -5,9 +5,12 @@ content ids, chunked values and the integrity plane, the open-loop
 serve engine (burst form, and the resident form whose macro step is one
 CUDA graph), the swarm-health monitor, the PHT secondary index and the
 always-on soak engine that runs serving, maintenance and monitoring in
-one loop; and around them the cost ledger, the metrics registry with
-its Prometheus planes, and the host ``Pht`` index over the device store
-(``StoreDht``).
+one loop; around them the cost ledger, the metrics registry with its
+Prometheus planes, and the host ``Pht`` index over the device store
+(``StoreDht``); and beside them the host Kademlia node (``core/dht.py``)
+with its MessagePack wire (``net/``), its in-process virtual network and
+scenarios (``harness/``) and its native helpers (``native/``), pure
+Python like their JAX counterparts.
 
 The package mirrors the layout of ``opendht_tpu`` (``ops/xor_metric.py``,
 ``ops/kernels.py``, ``ops/sha1.py``, ``models/swarm.py``,
@@ -16,10 +19,13 @@ The package mirrors the layout of ``opendht_tpu`` (``ops/xor_metric.py``,
 ``models/index.py``, ``models/soak.py``, ``obs/health.py``,
 ``obs/timeline.py``, ``obs/latency.py``, ``obs/ledger.py``,
 ``indexation/pht.py``, ``utils/rate_limiter.py``, ``utils/metrics.py``,
-``utils/infohash.py`` and, for value signing, ``crypto/``) so each function has an obvious
-counterpart there, and computes bit-identical results on the same state
+``utils/infohash.py``, ``core/``, ``net/``, ``harness/``, ``native/``,
+``utils/clock.py``, ``utils/logger.py``, ``utils/sockaddr.py`` and, for
+value signing, ``crypto/``) so each function has an obvious counterpart
+there, and computes bit-identical results on the same state
 (``tests/test_torch_*.py``).  It imports ``torch`` and nothing of JAX;
-``cryptography`` and ``msgpack`` are optional (signing only).
+MessagePack is its own codec (``utils/mpack.py``), and
+``cryptography`` is optional (signing only).
 
 Conventions:
 

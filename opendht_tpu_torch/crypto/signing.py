@@ -8,7 +8,7 @@ from __future__ import annotations
 from typing import List
 
 from .identity import CryptoException, PrivateKey
-from .value import Value
+from ..core.value import Value
 
 
 def sign_value(key: PrivateKey, v: Value) -> None:

@@ -14,11 +14,12 @@ known trie depth.
 
 It runs over anything with that surface; in the port that is
 :class:`~opendht_tpu_torch.models.index.StoreDht`, the facade over the
-device store, with values of the port's
-:class:`~opendht_tpu_torch.crypto.value.Value`.  An index entry's value
+device store, or the host node
+:class:`~opendht_tpu_torch.core.dht.Dht`, with values of the port's
+:class:`~opendht_tpu_torch.core.value.Value`.  An index entry's value
 blob is the MessagePack map ``{"p", "sz", "h", "vid"}`` the JAX package
-writes, encoded here by a small codec of its own (byte-equal to
-``msgpack.packb`` for these maps), so the port needs no ``msgpack``.
+writes, encoded by the port's codec (:mod:`~opendht_tpu_torch.utils.
+mpack`).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ import random
 import time as _time
 from typing import Callable, Dict, List, Optional, Tuple
 
-from ..crypto.value import Value
+from ..core.value import Value
 from ..utils.infohash import InfoHash
+from ..utils.mpack import packb, unpackb
 
 INDEX_PREFIX = "index.pht."
 MAX_NODE_ENTRY_COUNT = 16
@@ -37,95 +39,6 @@ CACHE_MAX_ELEMENT = 1024
 
 # An index entry points at (hash, value id) — ref pht.h:246.
 IndexValue = Tuple[InfoHash, int]
-
-
-# ---------------------------------------------------------------------------
-# the entry blob: a MessagePack map of short str keys to bytes / uint
-# ---------------------------------------------------------------------------
-
-def _mp_uint(v: int) -> bytes:
-    if v < 0:
-        raise ValueError("index entry fields are unsigned")
-    if v < 0x80:
-        return bytes([v])
-    for tag, n in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
-        if v < 1 << (8 * n):
-            return bytes([tag]) + v.to_bytes(n, "big")
-    raise ValueError("integer too large for MessagePack")
-
-
-def _mp_bin(b: bytes) -> bytes:
-    n = len(b)
-    for tag, w in ((0xC4, 1), (0xC5, 2), (0xC6, 4)):
-        if n < 1 << (8 * w):
-            return bytes([tag]) + n.to_bytes(w, "big") + b
-    raise ValueError("bytes too long for MessagePack")
-
-
-def _mp_str(s: str) -> bytes:
-    b = s.encode("utf-8")
-    if len(b) < 32:
-        return bytes([0xA0 | len(b)]) + b
-    if len(b) < 256:
-        return bytes([0xD9, len(b)]) + b
-    raise ValueError("key too long")
-
-
-def _mp_pack_map(m: Dict[str, object]) -> bytes:
-    """``msgpack.packb(m)`` for a map of up to 15 str keys whose values
-    are bytes or non-negative ints (bin and uint forms)."""
-    if len(m) > 15:
-        raise ValueError("map too large")
-    out = bytearray([0x80 | len(m)])
-    for k, v in m.items():
-        out += _mp_str(k)
-        out += _mp_bin(bytes(v)) if isinstance(v, (bytes, bytearray)) \
-            else _mp_uint(int(v))
-    return bytes(out)
-
-
-def _mp_unpack_map(blob: bytes) -> Dict[str, object]:
-    """The inverse of :func:`_mp_pack_map` (also str values); raises
-    ``ValueError`` on anything else."""
-    pos = 0
-
-    def take(n: int) -> bytes:
-        nonlocal pos
-        if pos + n > len(blob):
-            raise ValueError("truncated MessagePack")
-        out = blob[pos:pos + n]
-        pos += n
-        return out
-
-    def item():
-        t = take(1)[0]
-        if t < 0x80:
-            return t
-        if 0xA0 <= t <= 0xBF:
-            return take(t & 0x1F).decode("utf-8")
-        widths = {0xCC: 1, 0xCD: 2, 0xCE: 4, 0xCF: 8}
-        if t in widths:
-            return int.from_bytes(take(widths[t]), "big")
-        lens = {0xC4: 1, 0xC5: 2, 0xC6: 4, 0xD9: 1}
-        if t in lens:
-            data = take(int.from_bytes(take(lens[t]), "big"))
-            return data.decode("utf-8") if t == 0xD9 else data
-        raise ValueError(f"unsupported MessagePack tag {t:#x}")
-
-    t = take(1)[0]
-    if 0x80 <= t <= 0x8F:
-        n = t & 0x0F
-    elif t == 0xDE:
-        n = int.from_bytes(take(2), "big")
-    else:
-        raise ValueError("not a MessagePack map")
-    out = {}
-    for _ in range(n):
-        k = item()
-        out[k] = item()
-    if pos != len(blob):
-        raise ValueError("trailing bytes after the map")
-    return out
 
 
 class Prefix:
@@ -220,7 +133,7 @@ class IndexEntry:
         self.name = name
 
     def pack_value(self) -> Value:
-        blob = _mp_pack_map({
+        blob = packb({
             "p": self.prefix.content,
             "sz": self.prefix.size,
             "h": bytes(self.value[0]),
@@ -230,7 +143,7 @@ class IndexEntry:
 
     @classmethod
     def unpack_value(cls, v: Value) -> "IndexEntry":
-        o = _mp_unpack_map(v.data)
+        o = unpackb(v.data)
         return cls(Prefix(bytes(o["p"]), int(o["sz"])),
                    (InfoHash(bytes(o["h"])), int(o["vid"])),
                    v.user_type)

@@ -841,7 +841,7 @@ class StoreDht:
     def _node_values(self, h) -> list:
         """Every index value stored under trie-node hash ``h`` — the
         canary (slot 0) and each entry slot — as host values."""
-        from ..crypto.value import Value
+        from ..core.value import Value
         from ..indexation.pht import IndexEntry, Prefix
         from ..utils.infohash import InfoHash
 

@@ -14,9 +14,9 @@ Counterpart of ``opendht_tpu/models/integrity.py``:
 * **the signature stage** — RSA verifies stay on the host, batched:
   :class:`SignatureStage` takes whole harvested batches and checks them
   on a worker thread (OpenSSL releases the GIL, so the checks overlap
-  the next device burst).  ``cryptography`` and ``msgpack`` are
-  optional: without them the stage still builds, with ``available ==
-  False``, counts what it is given and reports null figures.
+  the next device burst).  ``cryptography`` is optional: without it
+  the stage still builds, with ``available == False``, counts what it
+  is given and reports null figures.
 
 Random draws are arguments: :func:`forge_payloads` takes the three draws
 (which rows, which word, which bit) as tensors, or draws them from an
@@ -104,8 +104,8 @@ class SignatureStage:
     :meth:`submit` enqueues one harvested batch and returns at once; the
     worker runs the RSA verifies while the caller dispatches the next
     device burst; :meth:`drain` joins it and returns the stats, with
-    ``verified + failed == submitted``.  Without ``cryptography`` and
-    ``msgpack`` the stage has ``available == False``: submissions are
+    ``verified + failed == submitted``.  Without ``cryptography`` the
+    stage has ``available == False``: submissions are
     counted and the crypto figures are ``None``.
     """
 
@@ -191,7 +191,7 @@ def make_signed_values(n: int, key_length: int = 2048):
         return None, None
     from ..crypto.identity import generate_identity
     from ..crypto.signing import sign_value
-    from ..crypto.value import Value
+    from ..core.value import Value
     ident = generate_identity("auth-bench", key_length=key_length)
     vals = []
     for i in range(n):

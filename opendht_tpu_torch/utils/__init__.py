@@ -1,6 +1,6 @@
 """Host utilities of the port: the metrics registry and its Prometheus
-exposition, 160-bit ``InfoHash`` ids, and the token-bucket rate
-limiter."""
+exposition, 160-bit ``InfoHash`` ids, the rate limiters, the MessagePack
+codec (``mpack``), clocks, the logger and socket addresses."""
 
 from .infohash import InfoHash  # noqa: F401
 from .metrics import (  # noqa: F401

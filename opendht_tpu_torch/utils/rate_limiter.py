@@ -1,14 +1,44 @@
-"""Token-bucket rate limiting for the serve engine's admission control.
+"""Rate limiting: the host node's inbound limiters and the serve
+engine's admission control (ref: include/opendht/rate_limiter.h:26-48).
 
-The port's own copy of the one limiter the serve engine uses: the
-O(1) token bucket (``quota`` tokens a second accrue up to a ``burst``
-ceiling, one token per admitted hit), the counterpart of
-``TokenBucket`` in ``opendht_tpu/utils/rate_limiter.py`` — the same
-arithmetic in the same order, so an admission decision taken at the
-same ``now`` is the same in both packages.
+The port's own copy of ``opendht_tpu/utils/rate_limiter.py``, the same
+arithmetic in the same order, so a decision taken at the same ``now``
+is the same in both packages:
+
+* :class:`RateLimiter` — the reference's sliding window: ``quota`` hits
+  per trailing second, a deque of timestamps;
+* :class:`TokenBucket` — ``quota`` tokens a second accrue up to a
+  ``burst`` ceiling, one token per admitted hit: O(1) state, so the
+  network engine's per-IP map and the serve engine use it;
+* :func:`make_rate_limiter` — the network engine's factory (the native
+  sliding window where the host library loaded, else its Python twin).
 """
 
 from __future__ import annotations
+
+from collections import deque
+
+
+class RateLimiter:
+    __slots__ = ("quota", "_hist")
+
+    def __init__(self, quota: int):
+        self.quota = quota
+        self._hist: deque = deque()
+
+    def limit(self, now: float) -> bool:
+        """Record a hit at ``now``; return True if within quota."""
+        while self._hist and self._hist[0] < now - 1.0:
+            self._hist.popleft()
+        if len(self._hist) >= self.quota:
+            return False
+        self._hist.append(now)
+        return True
+
+    def maintain(self, now: float) -> int:
+        while self._hist and self._hist[0] < now - 1.0:
+            self._hist.popleft()
+        return len(self._hist)
 
 
 class TokenBucket:
@@ -58,6 +88,29 @@ class TokenBucket:
         self._refill(now)
         return self._tokens >= 1.0
 
+    def maintain(self, now: float) -> int:
+        """The spent capacity (``burst - tokens``, rounded): the
+        bucket's analogue of the window's in-flight count."""
+        self._refill(now)
+        return int(round(self.burst - self._tokens))
+
     @property
     def tokens(self) -> float:
         return self._tokens
+
+
+def make_rate_limiter(quota: int, kind: str = "sliding"):
+    """A limiter for the inbound path: ``"sliding"`` is the native
+    sliding window where the host library loaded, else
+    :class:`RateLimiter`; ``"token-bucket"`` is a :class:`TokenBucket`."""
+    if kind == "token-bucket":
+        return TokenBucket(quota)
+    if kind != "sliding":
+        raise ValueError(f"unknown rate-limiter kind {kind!r}")
+    try:
+        from ..native import NativeRateLimiter, available
+        if available():
+            return NativeRateLimiter(quota)
+    except Exception:
+        pass
+    return RateLimiter(quota)

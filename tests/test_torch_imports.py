@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``opendht_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package."""
+``chip_smoke.py`` imports JAX, the JAX package or ``msgpack`` (the port
+carries its own MessagePack codec, ``utils/mpack.py``)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "opendht_tpu")
+FORBIDDEN = ("jax", "jaxlib", "opendht_tpu", "msgpack")
 
 
 def _port_files():
@@ -40,3 +41,12 @@ def test_port_files_exist():
 def test_no_jax_import(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_list_covers_msgpack(tmp_path):
+    """The scan sees each way a module can name ``msgpack``."""
+    for src in ("import msgpack", "from msgpack import packb",
+                "import msgpack.fallback as m", "__import__('msgpack')"):
+        f = tmp_path / "m.py"
+        f.write_text(src + "\n")
+        assert set(_imported_roots(f)) & set(FORBIDDEN) == {"msgpack"}, src

@@ -23,7 +23,7 @@ from opendht_tpu.crypto import securedht as jsec
 from opendht_tpu.models import integrity as ji
 from opendht_tpu_torch.crypto import identity as tid
 from opendht_tpu_torch.crypto import signing as tsig
-from opendht_tpu_torch.crypto.value import Value as TValue
+from opendht_tpu_torch.core.value import Value as TValue
 from opendht_tpu_torch.models import integrity as ti
 
 from torch_port_cases import assert_same, to_torch

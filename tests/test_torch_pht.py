@@ -5,7 +5,11 @@ port's ``Pht`` over the port's ``StoreDht`` and JAX's ``Pht`` over JAX's
 origins handed across — the stores equal after every insert, and the
 trie equal to a port ``DeviceIndex`` built from the same entries and to
 ``PhtOracle``; host lookups over ``StoreDht.over`` a device-built index
-read every entry; and the off-path ``bucket_range`` and ``lookup_steps``
+read every entry; ``tests/test_pht.py``'s cluster cases (round trip,
+missing key, multiple inserts, a split at capacity + 1 with
+``parent_insert`` both ways) through each package's ``Pht`` over its
+host ``Dht`` on ``DhtNetwork(6, seed=3)``, equal in callbacks, stores
+and datagrams; and the off-path ``bucket_range`` and ``lookup_steps``
 of the swarm module.
 
 Every index store op of both packages runs at one width
@@ -22,12 +26,14 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from opendht_tpu.harness import network as jnet
 from opendht_tpu.indexation import pht as jp
 from opendht_tpu.models import index as ji
 from opendht_tpu.models import storage as jst
 from opendht_tpu.models import swarm as jsw
 from opendht_tpu.utils import infohash as jih
 from opendht_tpu_torch.convert import store_from_numpy
+from opendht_tpu_torch.harness import network as tnet
 from opendht_tpu_torch.indexation import pht as tp
 from opendht_tpu_torch.models import index as ti
 from opendht_tpu_torch.models import storage as tst
@@ -111,8 +117,10 @@ def test_entry_blob_and_prefix_equal():
         assert (back.prefix.content, back.prefix.size, back.value) == \
             (p.content, p.size, e.value)
         assert p.hash().data == jp.Prefix(p.content, p.size).hash().data
-    with pytest.raises(ValueError):
-        tp._mp_unpack_map(msgpack.packb([1, 2]))
+    # A blob that is no map fails in both packages' unpack the same way.
+    for pkg in (tp, jp):
+        with pytest.raises(TypeError):
+            pkg.IndexEntry.unpack_value(pkg.Value(msgpack.packb([1, 2])))
     ph, pj = tp.Pht("x", {"a": 3, "b": 5}, None), jp.Pht("x", {"a": 3,
                                                                "b": 5}, None)
     for key in ({"a": b"", "b": b"hello"}, {"a": b"abc", "b": b"\x00"}):
@@ -283,3 +291,132 @@ def test_lookup_steps_equal():
         assert_same(jsw.lookup_steps(sw, cfg, st_j, n),
                     tsw.lookup_steps(s, cfg_t, st_t, n),
                     f"lookup_steps {n}")
+
+
+# ---------------------------------------------------------------------------
+# the host Pht over the host Dht (tests/test_pht.py's cluster cases)
+# ---------------------------------------------------------------------------
+
+SPLIT_JOBS = 13_000
+
+
+class _Cut(Exception):
+    pass
+
+
+def lookup_local(c, pht_mod, IH, key):
+    """Which nodes hold an index entry for ``key`` (any prefix)."""
+    want = bytes(IH.get(key.decode("latin1")))
+    return [i for i, d in enumerate(c.nodes)
+            if any(v.user_type == "index.pht.split17" and want in v.data
+                   for st in d.store.values() for v in st.get())]
+
+
+def _pht_cluster_case(case, pkg, parent_insert, monkeypatch):
+    """One cluster case through one package: ``Pht`` on
+    ``random.Random(17)`` over node 0 of ``DhtNetwork(6, seed=3)``,
+    readers on other nodes; returns the callbacks, every node's store
+    and the datagram log."""
+    import os
+    pht_mod, net_mod, ih_mod = ((tp, tnet, tih) if pkg == "port"
+                                else (jp, jnet, jih))
+    IH = ih_mod.InfoHash
+    stream = random.Random(5)
+    monkeypatch.setattr(os, "urandom", lambda n: stream.randbytes(n))
+    random.seed(6)
+    c = net_mod.DhtNetwork(6, seed=3)
+    log, out = [], []
+    orig = c.net.deliver
+
+    def deliver(data, src, dest):
+        log.append((c.clock.now(), str(src), str(dest), bytes(data)))
+        orig(data, src, dest)
+
+    c.net.deliver = deliver
+    c.interconnect()
+    c.run(2.0)
+
+    def pht(node, name="test", seed=17):
+        return pht_mod.Pht(name, {"id": 8}, c.nodes[node],
+                           rng=random.Random(seed),
+                           parent_insert=parent_insert)
+
+    def insert(p, keys, one_by_one=False, state=None):
+        state = [] if state is None else state
+        for i, k in enumerate(keys):
+            p.insert({"id": k}, (IH.get(k.decode("latin1")), i),
+                     lambda ok: state.append(ok))
+            if one_by_one:
+                assert c.run_until(lambda: len(state) == i + 1, 120)
+        assert c.run_until(lambda: len(state) == len(keys), 120)
+        out.append(("inserted", state))
+
+    def lookup(p, key):
+        found = {}
+        p.lookup({"id": key},
+                 lambda vals, pre: found.setdefault("vals", []).append(
+                     sorted((bytes(h), v) for h, v in vals)),
+                 lambda ok: found.update(done=ok))
+        assert c.run_until(lambda: "done" in found, 120)
+        out.append(("lookup", key, found))
+        return found
+
+    if case == "roundtrip":
+        insert(pht(0), [b"hello"])
+        got = lookup(pht(1), b"hello")
+        assert got["done"] and [(bytes(IH.get("hello")), 0)] in got["vals"]
+    elif case == "missing":
+        insert(pht(0), [b"exists"])
+        got = lookup(pht(2), b"missing!")
+        assert got.get("vals", [[]]) in ([[]], [])
+    elif case == "multiple":
+        keys = [f"k{i}".encode() for i in range(8)]
+        insert(pht(0), keys)
+        reader = pht(3)
+        for k in keys:
+            lookup(reader, k)
+    else:                                   # split at capacity + 1
+        # Over the host Dht the 17th insert reports done, and then, in
+        # either package, the search steps reschedule each other without
+        # end at a fixed virtual time.  The cluster is cut after SPLIT_JOBS
+        # scheduled jobs, past that point, and compared up to the cut.
+        keys = [b"pfx" + bytes([i]) for i in range(
+            pht_mod.MAX_NODE_ENTRY_COUNT + 1)]
+        p = pht(0, "split17", 19)
+        jobs, add = [0], c.scheduler.add
+
+        def capped(t, fn):
+            jobs[0] += 1
+            if jobs[0] > SPLIT_JOBS:
+                raise _Cut(c.clock.now())
+            return add(t, fn)
+
+        c.scheduler.add = capped
+        done = []
+        with pytest.raises(_Cut) as cut:
+            insert(p, keys, one_by_one=True, state=done)
+        out.append(("cut", cut.value.args, len(log), done))
+        found = [lookup_local(c, pht_mod, IH, k) for k in keys]
+        out.append(("local", found))
+    stores = [sorted((bytes(h), sorted(v.packed() for v in st.get()))
+                     for h, st in d.store.items()) for d in c.nodes]
+    return out, stores, log
+
+
+@pytest.mark.parametrize("case,parent_insert", [
+    ("roundtrip", True), ("missing", True), ("multiple", True),
+    ("split", True), ("split", False)])
+def test_host_pht_over_host_dht_equal(case, parent_insert, monkeypatch):
+    want = _pht_cluster_case(case, "jax", parent_insert, monkeypatch)
+    got = _pht_cluster_case(case, "port", parent_insert, monkeypatch)
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert got[2] == want[2]
+    if case == "split":
+        # All 17 inserts reported done, the 17th split the leaf (more
+        # than one trie node holds a canary), and the run was cut with
+        # virtual time stopped, in both packages alike.
+        assert got[0][0][0] == "cut" and got[0][0][3] == [True] * 17
+        canaries = {h for st in got[1] for h, vals in st
+                    if any(b"canary" in v for v in vals)}
+        assert len(canaries) > 1
