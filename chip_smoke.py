@@ -5,8 +5,10 @@ CUDA graph a macro step), its swarm-health monitor, its PHT index (and
 the host ``Pht`` over ``StoreDht``), its always-on soak engine, its
 table-sharded engines (ranks over ``torch.distributed``), its cost
 ledger and its metrics planes on one CUDA card, its host Kademlia node
-beside them (held to the device engines by the conformance bands), and
-hold each of its CUDA kernels against its plain PyTorch version.
+beside them (held to the device engines by the conformance bands) with
+its crypto overlay, runner and tools (the signed storage sequence held
+host = device), and hold each of its CUDA kernels against its plain
+PyTorch version.
 
 Run from the root of a checkout, on a machine with one NVIDIA card and
 the CUDA toolkit:
@@ -246,7 +248,26 @@ Phases (any failure exits non-zero and prints no result line):
    a re-get; the conformance bands between the two; then
    ``python3 -m opendht_tpu_torch.harness.benchmark --swarm`` at its
    defaults (100,000 nodes × 10,000 lookups) on the card, done 1.0; the
-   native host library's load state (parent and child).
+   native host library's load state (parent and child);
+22. the crypto overlay, the runner and the tools (``secure_path``, after
+   ``host_path``): a third child (``--secure-child``, started beside the
+   host child; no card) runs, on one CPU thread, ``secure_identity`` (a
+   4,096-bit CA and leaf, the leaf's PKCS#8 key through
+   ``password_encrypt`` / ``password_decrypt`` with the C++ Argon2i at
+   t = 16, m = 64 MiB, a CRL revoking a second leaf), ``secure_seq``
+   (``tests/test_conformance.py``'s signed ``SEQ_STEPS`` host leg: 16
+   ``add_secure_node`` nodes, a 4,096-bit author, the replica (seq, tag)
+   sets at the key's true 8 closest) and ``runner`` (two ``DhtRunner``
+   s on 127.0.0.1: put / get / listen / ``put_signed`` / ``put_encrypted``
+   / ``save_state`` → ``load_state``; a 4-node ``ProcCluster``;
+   ``python -m opendht_tpu_torch.tools.dhtnode`` over stdin;
+   ``http_gateway`` on loopback; ``dhtscanner`` over a 64-node
+   ``DhtNetwork``); joined here, then the ``SEQ_STEPS`` through
+   ``models/storage`` on the main path's 10M-node swarm with a store of
+   its own (slots 8, freed after; K1 in every lookup, its launches the
+   ``secure`` column), and at 1,024 nodes on the CPU and the card from
+   the same draws, bit-equal; host and device visible outcomes =
+   ``SEQ_EXPECT`` step for step.
 
 Prints the ``ptxas`` lines of every kernel (registers, shared memory,
 spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
@@ -262,7 +283,8 @@ spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
 ``sharded_storage_path``, ``sharded_storage_ranks``, ``monitor_sweep``,
 ``monitor_path``, ``store_dht_inserts``, ``ledger_path``,
 ``repub_profile``, ``sharded_ledger``, ``store_dht_lookups``, ``host_leg``,
-``host_scenario``, ``benchmark_swarm`` and ``host_path`` lines, ``elapsed`` lines between phases, a ``kernels``
+``host_scenario``, ``benchmark_swarm``, ``host_path`` and
+``secure_path`` lines, ``elapsed`` lines between phases, a ``kernels``
 JSON line (each row with its
 launches on every path — a graph replay counts the kernels its capture
 recorded — K1's and K2's with their times at the serve shape), the card
@@ -6229,6 +6251,565 @@ def phase_host_path(dev, host_proc, card, failures):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the crypto overlay, the runner and the tools: the signed storage sequence
+# ---------------------------------------------------------------------------
+
+# tests/test_conformance.py: (seq, tag) steps put to one key, the tag and
+# seq the freshest replica must hold after each under the edit policy
+# (seq must rise; an equal seq re-announces only the same data).
+SEQ_STEPS = [(5, 1), (4, 2), (6, 3), (6, 4), (2, 5), (7, 6)]
+SEQ_EXPECT = [1, 1, 3, 3, 3, 6]
+SEQ_EXPECT_SEQ = [5, 5, 6, 6, 6, 7]
+SEQ_SECURE_NODES = 16           # the host leg's SecureDht cluster
+SEQ_CARD_VS_CPU_NODES = 1024    # the device leg's card = CPU size
+SEQ_STORE = dict(slots=8, listen_slots=2, max_listeners=64)
+SCAN_NODES = 64                 # dhtscanner's virtual cluster
+
+
+def seq_errors(step: int, pairs) -> list:
+    """``check_replica_outcomes``: the fully delivered outcome is held by
+    some replica, and nothing fresher is held anywhere."""
+    exp = (SEQ_EXPECT_SEQ[step], SEQ_EXPECT[step])
+    if not pairs:
+        return [f"step {step}: no replica stored"]
+    bad = []
+    if exp not in pairs:
+        bad.append(f"step {step}: {exp} not among {sorted(pairs)}")
+    if max(s for s, _ in pairs) != exp[0]:
+        bad.append(f"step {step}: fresher than {exp} in {sorted(pairs)}")
+    return bad
+
+
+def secure_identity_leg():
+    """A 4,096-bit CA and a leaf from it (``generate_identity``'s
+    defaults); the leaf's PKCS#8 key through ``password_encrypt`` /
+    ``password_decrypt`` (Argon2i at t = 16, m = 64 MiB, which must be
+    the C++ build); a CRL signed by the CA that revokes a second leaf.
+    Returns the leg's record and the CA and leaf identities."""
+    from opendht_tpu_torch.crypto.identity import (
+        RevocationList, generate_identity, password_decrypt,
+        password_encrypt)
+    from opendht_tpu_torch.native import argon2
+
+    out: dict = {"argon2_native": argon2.available()}
+    if not out["argon2_native"]:
+        raise RuntimeError("the C++ Argon2i did not build: the Python "
+                           "twin would run at the password cost")
+    walls = []
+    t0 = time.perf_counter()
+    ca = generate_identity("chip-ca")
+    walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    leaf = generate_identity("chip-leaf", ca)
+    walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    other = generate_identity("chip-revoked", ca)
+    walls.append(time.perf_counter() - t0)
+    der = leaf.key.serialize()
+    t0 = time.perf_counter()
+    blob = password_encrypt(der, "chip smoke password")
+    out["password_encrypt_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = password_decrypt(blob, "chip smoke password")
+    out["password_decrypt_s"] = time.perf_counter() - t0
+    if back != der:
+        raise RuntimeError("password_decrypt did not give the key back")
+    crl = RevocationList()
+    crl.revoke(other.certificate)
+    crl.sign(ca.key, ca.certificate)
+    ca.certificate.add_revocation_list(crl)
+    crl2 = RevocationList(crl.get_packed())
+    checks = {"ca_is_ca": ca.certificate.is_ca(),
+              "leaf_is_ca": leaf.certificate.is_ca(),
+              "leaf_issuer": leaf.certificate.issuer.get_name(),
+              "revoked": ca.certificate.is_revoked(other.certificate),
+              "leaf_revoked": ca.certificate.is_revoked(leaf.certificate),
+              "crl_signed_by_ca": crl2.is_signed_by(ca.certificate),
+              "crl_revokes_after_unpack": crl2.is_revoked(other.certificate)}
+    want = {"ca_is_ca": True, "leaf_is_ca": False, "leaf_issuer": "chip-ca",
+            "revoked": True, "leaf_revoked": False, "crl_signed_by_ca": True,
+            "crl_revokes_after_unpack": True}
+    if checks != want:
+        raise RuntimeError(f"identity checks {checks}")
+    out.update(key_bits=4096, keygen_s=walls, encrypted_bytes=len(blob),
+               checks=checks)
+    return out, {"ca": ca, "leaf": leaf}
+
+
+def secure_seq_leg() -> dict:
+    """``tests/test_conformance.py``'s signed storage-sequence host leg:
+    16 ``SecureDht`` nodes on ``DhtNetwork(0, seed=11)``, 10 virtual
+    seconds, a 4,096-bit author; each step signed (seq rides the signed
+    form) and put from one of the key's 8 farthest nodes, then the
+    replica (seq, tag) set read at the key's true 8 closest."""
+    from opendht_tpu_torch.core.value import Value
+    from opendht_tpu_torch.crypto.identity import generate_identity
+    from opendht_tpu_torch.crypto.signing import sign_value
+    from opendht_tpu_torch.harness.network import DhtNetwork
+    from opendht_tpu_torch.utils.infohash import InfoHash
+
+    t0 = time.perf_counter()
+    c = DhtNetwork(0, seed=11)
+    for _ in range(SEQ_SECURE_NODES):
+        c.add_secure_node()
+    c.interconnect()
+    c.run(10.0)
+    t1 = time.perf_counter()
+    author = generate_identity("author")
+    keygen_s = time.perf_counter() - t1
+    key = InfoHash(b"\x42" * 20)
+    t = int.from_bytes(bytes(key), "big")
+    ranked = [i for _, i in sorted(
+        (int.from_bytes(bytes(d.myid), "big") ^ t, i)
+        for i, d in enumerate(c.nodes))]
+    closest, farthest = ranked[:8], ranked[8:]
+    steps, errors = [], []
+    for step, (seq, tag) in enumerate(SEQ_STEPS):
+        v = Value(bytes([tag]), value_id=77)
+        v.seq = seq
+        sign_value(author.key, v)
+        done = []
+        c.nodes[farthest[step % len(farthest)]].put(
+            key, v, lambda ok, ns: done.append(ok))
+        c.run_until(lambda: done, timeout=60.0)
+        c.run(1.0)
+        pairs = set()
+        for i in closest:
+            lv = c.nodes[i].get_local_by_id(key, 77)
+            if lv is not None:
+                pairs.add((lv.seq, lv.data[0]))
+        errors += seq_errors(step, pairs)
+        steps.append({"pairs": sorted(pairs), "acked": bool(done and done[0]),
+                      "visible": list(max(pairs)) if pairs else None})
+    if errors:
+        raise RuntimeError("; ".join(errors))
+    return {"nodes": SEQ_SECURE_NODES, "author_bits": 4096,
+            "author_keygen_s": keygen_s, "steps": steps,
+            "wall_s": time.perf_counter() - t0}
+
+
+def scan_on_clock(scanner, net, InfoHash, timeout: float = 600.0) -> bool:
+    """``Scanner.scan``'s two root searches with the cluster's virtual
+    clock driven until every split search is done."""
+    with scanner.lock:
+        scanner.pending += 1
+    for bit in (False, True):
+        scanner.step(InfoHash.get_random().set_bit(0, bit), 0)
+    with scanner.lock:
+        scanner.pending -= 1
+        if scanner.pending == 0:
+            scanner.done_evt.set()
+    return net.run_until(scanner.done_evt.is_set, timeout)
+
+
+def wait_until(pred, timeout: float = 15.0) -> bool:
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if pred():
+            return True
+        time.sleep(0.05)
+    return bool(pred())
+
+
+def dhtnode_script(boot_port: int) -> dict:
+    """``python -m opendht_tpu_torch.tools.dhtnode`` bootstrapped to
+    ``boot_port`` on 127.0.0.1, driven over stdin: ``p``, ``g``, ``ll``,
+    ``ls``, ``x`` (an unknown command), then ``q``; each command's output
+    is awaited before the next."""
+    import select
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "opendht_tpu_torch.tools.dhtnode", "-p",
+         "0", "--bind", "127.0.0.1", "-b", f"127.0.0.1:{boot_port}"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, cwd=REPO)
+    CHILDREN.append(proc)
+    buf, out = b"", []
+    fd = proc.stdout.fileno()
+
+    def until(needle: str, timeout: float = 20.0) -> None:
+        nonlocal buf
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            while b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                out.append(line.decode())
+                if needle in out[-1]:
+                    return
+            if select.select([fd], [], [], 0.1)[0]:
+                chunk = os.read(fd, 65536)
+                if not chunk:
+                    break
+                buf += chunk
+        raise RuntimeError(f"dhtnode: {needle!r} not seen in {out[-20:]}")
+
+    def send(line: str) -> None:
+        proc.stdin.write(line.encode() + b"\n")
+        proc.stdin.flush()
+
+    try:
+        until("on port")
+        send("p chip-key hello from dhtnode")
+        until("put chip-key: ok")
+        send("g chip-key")
+        until("get chip-key: ok")
+        got = [x for x in out if "value:" in x]
+        for cmd in ("ll", "ls", "x"):
+            send(cmd)
+        until("unknown command: x")
+        send("q")
+        until("Stopping node")
+        rc = proc.wait(timeout=20)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or not got or not any("good" in x for x in out):
+        raise RuntimeError(f"dhtnode rc {rc}, output {out[-20:]}")
+    return {"rc": rc, "lines": len(out), "got": got}
+
+
+def runner_leg(idents) -> dict:
+    """Two ``DhtRunner`` s on 127.0.0.1 (the CA and the leaf identity),
+    each inserting the other's node: put / get / listen, ``put_signed``
+    (with a seq bump), ``put_encrypted``, ``save_state`` read back by a
+    third runner's ``load_state``; a 4-node ``ProcCluster`` put and get;
+    ``dhtnode`` over stdin; ``http_gateway`` on loopback (a POST, a GET,
+    ``/metrics``, ``/stats.json``); ``dhtscanner`` over a 64-node
+    ``DhtNetwork``."""
+    import base64
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from opendht_tpu_torch.core.value import Value
+    from opendht_tpu_torch.harness.network import DhtNetwork
+    from opendht_tpu_torch.harness.proc_node import ProcCluster
+    from opendht_tpu_torch.runtime import DhtRunner
+    from opendht_tpu_torch.tools.dhtscanner import Scanner
+    from opendht_tpu_torch.tools.http_gateway import make_handler
+    from opendht_tpu_torch.utils.infohash import InfoHash
+    from opendht_tpu_torch.utils.metrics import MetricsRegistry
+    from opendht_tpu_torch.utils.sockaddr import SockAddr
+
+    out: dict = {}
+    walls: dict = {}
+
+    def check(what, ok):
+        if not ok:
+            raise RuntimeError(f"runner leg: {what}")
+
+    t0 = time.perf_counter()
+    a, b = DhtRunner(), DhtRunner()
+    a.run(port=0, bind4="127.0.0.1", identity=idents["ca"])
+    b.run(port=0, bind4="127.0.0.1", identity=idents["leaf"])
+    try:
+        for x, y in ((a, b), (b, a)):
+            x.bootstrap_nodes([(y.get_node_id(), SockAddr(
+                "127.0.0.1", y.get_bound_port()))])
+        check("connect", wait_until(lambda: a.get_nodes_stats()[0] > 0
+                                    and b.get_nodes_stats()[0] > 0))
+        h = InfoHash.get("chip-runner")
+        seen = []
+        b.listen(h, lambda vs: seen.extend(vs) or True).result(timeout=15)
+        check("put", a.put_future(h, Value(b"plain")).result(timeout=15))
+        check("get", [v.data for v in b.get_future(h).result(15)]
+              == [b"plain"])
+        check("listen", wait_until(lambda: seen))
+        hs = InfoHash.get("chip-signed")
+        for i, data in enumerate((b"signed 1", b"signed 2")):
+            done = []
+            a.put_signed(hs, Value(data, 0, value_id=9),
+                         lambda ok, ns: done.append(ok))
+            check(f"put_signed {i}", wait_until(lambda: done) and done[0])
+        vals = b.get_future(hs).result(timeout=15)
+        check("signed get", [(v.data, v.seq, v.is_signed()) for v in vals]
+              == [(b"signed 2", 1, True)])
+        he = InfoHash.get("chip-encrypted")
+        done = []
+        a.put_encrypted(he, b.get_id(), Value(b"for the leaf", 0),
+                        lambda ok, ns: done.append(ok))
+        check("put_encrypted", wait_until(lambda: done) and done[0])
+        vals = b.get_future(he).result(timeout=15)
+        check("decrypt", [v.data for v in vals] == [b"for the leaf"]
+              and vals[0].recipient == b.get_id())
+        check("not for a", a.get_future(he).result(timeout=15) == [])
+        walls["runners_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=REPO) as d:
+            path = os.path.join(d, "state.mp")
+            b.save_state(path)
+            c = DhtRunner()
+            c.run(port=0, bind4="127.0.0.1")
+            try:
+                out["state_nodes"] = c.load_state(path)
+                check("load_state", out["state_nodes"] >= 1 and wait_until(
+                    lambda: any(v.data == b"plain"
+                                for v in c.dht.get_local(h))))
+            finally:
+                c.join()
+        walls["state_s"] = time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        out["dhtnode"] = dhtnode_script(a.get_bound_port())
+        walls["dhtnode_s"] = time.perf_counter() - t1
+
+        t1 = time.perf_counter()
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(b))
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            def http(path, body=None):
+                req = urllib.request.Request(
+                    base + path, data=body, method="POST" if body else "GET")
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    return r.status, r.read()
+            st, body = http("/chip-gw", b"over http")
+            check("gateway POST", st == 200 and json.loads(body)["ok"])
+            st, body = http("/chip-gw")
+            check("gateway GET", st == 200 and [
+                base64.b64decode(v["data"]) for v in json.loads(body)]
+                == [b"over http"])
+            st, body = http("/metrics")
+            check("gateway /metrics", st == 200 and
+                  b'dht_gateway_request_latency_seconds_count{op="get"} 1'
+                  in body)
+            st, body = http("/stats.json")
+            check("gateway /stats.json", st == 200 and json.loads(body)[
+                "node_id"] == str(b.get_node_id()))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        walls["gateway_s"] = time.perf_counter() - t1
+    finally:
+        a.join()
+        b.join()
+
+    t1 = time.perf_counter()
+    pc = ProcCluster(4)
+    CHILDREN.extend(n.proc for n in pc.nodes)
+    try:
+        check("proc cluster connect", pc.wait_connected(timeout=30))
+        key = bytes(InfoHash.get("chip-proc"))
+        check("proc put", pc.put(1, key, b"across processes"))
+        check("proc get", pc.get(3, key) == [b"across processes"])
+    finally:
+        pc.close()
+    walls["proc_cluster_s"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    net = DhtNetwork(SCAN_NODES, seed=17)
+    net.interconnect()
+    net.run(10.0)
+    sc = Scanner(net.nodes[0], MetricsRegistry())
+    check("scan finished", scan_on_clock(sc, net, InfoHash))
+    out["scanner_nodes_found"] = len(sc.seen)
+    members = {bytes(d.myid) for d in net.nodes}
+    # The crawl stops splitting a subtree that gives fewer than a
+    # bucket of new nodes, so it finds most of the cluster, not all
+    # (46-57 of 63 in runs on the CPU).
+    check(f"scanner found {len(sc.seen)} nodes of {SCAN_NODES - 1}, all "
+          f"members: {all(bytes(k) in members for k in sc.seen)}",
+          len(sc.seen) >= SCAN_NODES // 2
+          and all(bytes(k) in members for k in sc.seen))
+    walls["scanner_s"] = time.perf_counter() - t1
+    out["walls_s"] = walls
+    return out
+
+
+def secure_child() -> int:
+    """``--secure-child``: this slice's host legs on one CPU thread, one
+    ``host_leg`` line each (``secure_identity``, ``secure_seq``,
+    ``runner``), then a ``secure_result`` line with every number."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(1)
+    t_all = time.perf_counter()
+    out: dict = {"failures": []}
+    try:
+        import cryptography  # noqa: F401
+    except ImportError as e:
+        out["failures"].append(f"cryptography is missing: {e}")
+        print("secure_result " + json.dumps(out), flush=True)
+        return 0
+    idents = None
+    for name in ("secure_identity", "secure_seq", "runner"):
+        t0 = time.perf_counter()
+        try:
+            if name == "secure_identity":
+                res, idents = secure_identity_leg()
+            elif name == "secure_seq":
+                res = secure_seq_leg()
+            elif idents is None:
+                raise RuntimeError("no identities from secure_identity")
+            else:
+                res = runner_leg(idents)
+        except Exception as e:      # reported as a failure by the parent
+            out["failures"].append(f"host leg {name}: {e!r}")
+            continue
+        res["leg_wall_s"] = time.perf_counter() - t0
+        out[name] = res
+        print("host_leg " + json.dumps({"leg": name, **res}), flush=True)
+    out["wall_s"] = time.perf_counter() - t_all
+    print("secure_result " + json.dumps(out), flush=True)
+    return 0
+
+
+def start_secure():
+    """Start ``secure_child`` (this script with ``--secure-child``) beside
+    the host child; it uses no card."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--secure-child"], stdout=subprocess.PIPE,
+                            text=True, cwd=REPO)
+
+
+def join_secure(child, failures):
+    out, _ = child.communicate(timeout=900)
+    result = None
+    for line in out.splitlines():
+        if line.startswith("secure_result "):
+            result = json.loads(line.split(" ", 1)[1])
+        else:
+            log(line)
+    if child.returncode != 0 or result is None:
+        failures.append(f"the secure child exited {child.returncode}")
+        return None
+    failures.extend(result["failures"])
+    return result
+
+
+def device_seq_leg(swarm, cfg, store, scfg, key5, origins_of, dev,
+                   snapshot: bool = False) -> list:
+    """The ``SEQ_STEPS`` through ``models/storage``: ``announce`` then
+    ``get_values`` of one key each step, the replica (seq, tag) pairs read
+    off the store (updated in place).  Returns one record a step, with
+    a copy of the store after it when ``snapshot``."""
+    import torch
+    from opendht_tpu_torch.models import storage as stg
+    steps = []
+    for step, (seq, tag) in enumerate(SEQ_STEPS):
+        store, _ = stg.announce(
+            swarm, cfg, store, scfg, key5,
+            torch.tensor([tag], device=dev), torch.tensor([seq], device=dev),
+            step, origins=origins_of(2 * step), device=dev)
+        res = stg.get_values(swarm, cfg, store, scfg, key5,
+                             origins=origins_of(2 * step + 1), device=dev)
+        m = store.used & (store.keys == key5.view(1, 1, 5)).all(-1)
+        pairs = sorted(set(zip(store.seqs[m].tolist(),
+                               store.vals[m].tolist())))
+        steps.append({"store": snapshot and [
+                          t.clone() if isinstance(t, torch.Tensor) else t
+                          for t in store],
+                      "res": res, "pairs": pairs,
+                      "visible": [int(res.seq[0]), int(res.val[0])],
+                      "hit": bool(res.hit[0])})
+    return steps
+
+
+def seq_device_errors(steps) -> list:
+    bad = []
+    for step, r in enumerate(steps):
+        bad += seq_errors(step, set(map(tuple, r["pairs"])))
+        want = [SEQ_EXPECT_SEQ[step], SEQ_EXPECT[step]]
+        if not r["hit"] or r["visible"] != want:
+            bad.append(f"step {step}: get gave {r['visible']} (hit "
+                       f"{r['hit']}), not {want}")
+    return bad
+
+
+def phase_secure_path(sw, swarm, cfg, dev, secure_proc, card, failures):
+    """This slice's path: join the secure child; the ``SEQ_STEPS`` on the
+    main path's 10M-node swarm with a store of its own (slots 8; K1 in
+    every lookup), then at 1,024 nodes on the CPU and the card from the
+    same draws, compared exactly; the host leg's visible outcome, the
+    device leg's and ``SEQ_EXPECT`` equal step for step.  Returns the
+    10M leg's launches."""
+    import torch
+    from opendht_tpu_torch.models import storage as stg
+    from opendht_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    host = join_secure(secure_proc, failures)
+    wait_s = time.perf_counter() - t0
+    log(f"secure_path secure child joined after {wait_s:.1f} s of waiting")
+    scfg = stg.StoreConfig(**SEQ_STORE)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    store = stg.empty_store(cfg.n_nodes, scfg, device=dev)
+    store_bytes = sum(t.numel() * t.element_size() for t in store
+                      if isinstance(t, torch.Tensor))
+    g = torch.Generator(device=dev).manual_seed(42)
+    key5 = torch.randint(0, 2**32, (1, 5), generator=g, device=dev)
+    steps = device_seq_leg(swarm, cfg, store, scfg, key5,
+                           lambda i: sw._sample_origins(g, swarm.alive, 1),
+                           dev)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    full = [{k: r[k] for k in ("pairs", "visible", "hit")} for r in steps]
+    bad = seq_device_errors(steps)
+    del steps, store
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if launches["merge_round"] <= 0:
+        failures.append("merge_round was not launched on the secure path")
+
+    # 1,024 nodes, card = CPU from the same CPU draws
+    t2 = time.perf_counter()
+    n = SEQ_CARD_VS_CPU_NODES
+    cfg_s = sw.SwarmConfig.for_nodes(n, device="cpu")
+    g = torch.Generator().manual_seed(7)
+    base = sw.build_swarm(cfg_s, g, device="cpu")
+    key_s = torch.randint(0, 2**32, (1, 5), generator=g)
+    og = [sw._sample_origins(g, base.alive, 1) for _ in SEQ_STEPS * 2]
+    runs = {}
+    for k, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        runs[k] = device_seq_leg(base.to(d), cfg_s,
+                                 stg.empty_store(n, scfg, device=d), scfg,
+                                 key_s.to(d), lambda i, d=d: og[i].to(d), d,
+                                 snapshot=True)
+    same = all(same_tensors((a["store"], a["res"]), (b["store"], b["res"]))
+               for a, b in zip(runs["cpu"], runs["card"]))
+    small_s = time.perf_counter() - t2
+    log(f"secure_path device SEQ leg card vs CPU, {n} nodes: "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        failures.append(f"card and CPU differ (SEQ leg, {n} nodes)")
+    bad += seq_device_errors(runs["card"])
+    host_steps = (host or {}).get("secure_seq", {}).get("steps")
+    host_visible = None if host_steps is None else [
+        r["visible"] for r in host_steps]
+    want = [[s, t] for s, t in zip(SEQ_EXPECT_SEQ, SEQ_EXPECT)]
+    if host_visible != want:
+        bad.append(f"host visible sequence {host_visible} != {want}")
+    dev_visible = [r["visible"] for r in full]
+    if dev_visible != want:
+        bad.append(f"device visible sequence {dev_visible} != {want}")
+    failures.extend(f"secure path: {b}" for b in bad)
+    log("secure_path " + json.dumps({
+        "host": None if host is None else {
+            "visible": host_visible,
+            "legs_wall_s": {k: host[k].get("leg_wall_s") for k in
+                            ("secure_identity", "secure_seq", "runner")
+                            if k in host},
+            "child_wall_s": host.get("wall_s")},
+        "child_join_wait_s": wait_s,
+        "device": {"n_nodes": cfg.n_nodes, "store": SEQ_STORE,
+                   "store_bytes": store_bytes, "steps": full,
+                   "wall_s": full_s, "launches": launches,
+                   "memory_allocated_before": before,
+                   "peak_memory_bytes": peak,
+                   "memory_allocated_after": after},
+        "card_vs_cpu": {"n_nodes": n, "bit_equal": same, "wall_s": small_s},
+        "seq_expect_ok": not bad, "card": card}))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6256,6 +6837,8 @@ def main() -> int:
     child = start_store_dht()
     host_proc = start_host()
     CHILDREN.append(host_proc)
+    secure_proc = start_secure()
+    CHILDREN.append(secure_proc)
     try:
         cpu_threads = torch.get_num_threads()
         # One thread for the store child; the host child ends within
@@ -6419,6 +7002,9 @@ def main() -> int:
     launches_st = phase_sharded_storage_ranks(card, failures)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_h = phase_host_path(dev, host_proc, card, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    launches_sec = phase_secure_path(sw, swarm, cfg, dev, secure_proc, card,
+                                     failures)
     # The monitor kills nodes and heals the tables in place: last.
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     launches_m = phase_monitor_full(sw, swarm, cfg, card, failures)
@@ -6429,6 +7015,7 @@ def main() -> int:
                "resident": launches_r, "chunked": launches_k,
                "index": launches_i, "soak": launches_so,
                "monitor": launches_m, "host": launches_h,
+               "secure": launches_sec,
                "sharded": launches_sh,
                "sharded_ranks": launches_shr, "sharded_chaos": launches_shc,
                "sharded_serve": launches_shs,
@@ -6464,6 +7051,8 @@ if __name__ == "__main__":
         sys.exit(store_dht_child())
     if sys.argv[1:] == ["--host-child"]:
         sys.exit(host_child())
+    if sys.argv[1:] == ["--secure-child"]:
+        sys.exit(secure_child())
     try:
         rc = main()
     finally:

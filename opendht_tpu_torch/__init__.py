@@ -9,8 +9,12 @@ one loop; around them the cost ledger, the metrics registry with its
 Prometheus planes, and the host ``Pht`` index over the device store
 (``StoreDht``); and beside them the host Kademlia node (``core/dht.py``)
 with its MessagePack wire (``net/``), its in-process virtual network and
-scenarios (``harness/``) and its native helpers (``native/``), pure
-Python like their JAX counterparts.
+scenarios (``harness/``) and its native helpers (``native/``), the
+crypto overlay ``SecureDht`` with its identities and password crypto
+(``crypto/``), the threaded ``DhtRunner`` with ``NodeSet`` and the
+process harness (``runtime/``, ``harness/proc_node.py``) and the
+command-line tools (``tools/``), pure Python like their JAX
+counterparts (Argon2i in C++, with a Python twin).
 
 The package mirrors the layout of ``opendht_tpu`` (``ops/xor_metric.py``,
 ``ops/kernels.py``, ``ops/sha1.py``, ``models/swarm.py``,
@@ -25,7 +29,14 @@ value signing, ``crypto/``) so each function has an obvious counterpart
 there, and computes bit-identical results on the same state
 (``tests/test_torch_*.py``).  It imports ``torch`` and nothing of JAX;
 MessagePack is its own codec (``utils/mpack.py``), and
-``cryptography`` is optional (signing only).
+``cryptography`` is optional (keys, certificates and ciphers only).
+
+The package exports the binding-parity names (``InfoHash``, ``Value``,
+``Dht``, ``NodeSet``, ``Pht``, ``DhtNetwork`` ..., and, where
+``cryptography`` is installed, the crypto names, ``SecureDht*`` and
+``DhtRunner*``) and the swarm engine's; the swarm names load
+``torch`` at first use, so importing the package loads neither torch
+nor a native library.
 
 Conventions:
 
@@ -41,13 +52,43 @@ Conventions:
   PyTorch version beside it.
 """
 
-from .models.swarm import (  # noqa: F401
-    LookupResult,
-    LookupState,
-    Swarm,
-    SwarmConfig,
-    build_swarm,
-    lookup,
-    lookup_recall,
-    true_closest,
-)
+# Binding-parity surface (the JAX package's ``opendht_tpu/__init__.py``).
+from .utils.infohash import InfoHash  # noqa: F401
+from .utils.sockaddr import SockAddr  # noqa: F401
+from .core.value import Query, Select, Value, ValueType, Where  # noqa: F401
+from .core.node import Node  # noqa: F401
+from .core.dht import Dht, DhtConfig  # noqa: F401
+from .runtime.nodeset import NodeSet  # noqa: F401
+from .indexation.pht import Pht  # noqa: F401
+from .harness.network import DhtNetwork  # noqa: F401
+from .crypto import HAVE_CRYPTO
+
+# name -> module; the crypto names need ``cryptography`` and raise
+# ImportError without it, the swarm names load torch when first used.
+_CRYPTO_NAMES = {
+    "Certificate": "crypto.identity", "Identity": "crypto.identity",
+    "PrivateKey": "crypto.identity", "PublicKey": "crypto.identity",
+    "generate_identity": "crypto.identity",
+    "SecureDht": "crypto.securedht", "SecureDhtConfig": "crypto.securedht",
+    "DhtRunner": "runtime.dhtrunner", "DhtRunnerConfig": "runtime.dhtrunner",
+}
+_SWARM_NAMES = ("LookupResult", "LookupState", "Swarm", "SwarmConfig",
+                "build_swarm", "lookup", "lookup_recall", "true_closest")
+
+
+def __getattr__(name: str):
+    import importlib
+    if name in _CRYPTO_NAMES:
+        if not HAVE_CRYPTO:
+            raise ImportError(
+                f"opendht_tpu_torch.{name} requires the optional "
+                f"crypto dependency (cryptography)")
+        mod = _CRYPTO_NAMES[name]
+    elif name in _SWARM_NAMES:
+        mod = "models.swarm"
+    else:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = value
+    return value

@@ -1,12 +1,10 @@
-"""Host-side value signing for the integrity plane's signature stage.
-
-The port's own minimal copy of what signing a value needs: RSA keys and
-a self-signed identity (:mod:`.identity`) and the sign / check /
-batch-verify calls (:mod:`.signing`) over the to-sign form of
-:class:`~opendht_tpu_torch.core.value.Value`.  ``cryptography`` is
-optional: it is imported only where a key is made, so every module here
-imports without it, and :data:`HAVE_CRYPTO` says whether it is
-present.
+"""The public-key crypto layer: identities, certificates and their
+revocation lists, hybrid and password encryption (:mod:`.identity`),
+value signing (:mod:`.signing`, shared with the integrity plane) and the
+``SecureDht`` overlay (:mod:`.securedht`).  ``cryptography`` is
+optional: it is imported only where a key, a certificate or a cipher is
+made or used, so every module here imports without it, and
+:data:`HAVE_CRYPTO` says whether it is present.
 """
 
 

@@ -1,7 +1,7 @@
-"""Sign a value, check its signature, and check a batch of them — the
-host half of the integrity plane (the JAX package's
-``crypto/securedht.py`` ``sign_value``, ``check_value_signature`` and
-``verify_values_batch``, nothing else of that module)."""
+"""Sign a value, check its signature, and check a batch of them: the
+JAX package's ``crypto/securedht.py`` ``sign_value``,
+``check_value_signature`` and ``verify_values_batch``, shared by the
+integrity plane's signature stage and :mod:`.securedht`."""
 
 from __future__ import annotations
 

@@ -78,11 +78,13 @@ class DhtNetwork:
         return dht
 
     def add_secure_node(self, identity=None, i: Optional[int] = None):
-        """A SecureDht node (the crypto overlay): ``SecureDht`` is not
-        ported yet, so this raises."""
-        raise NotImplementedError(
-            "SecureDht (crypto/securedht.py) is not ported yet: "
-            "add_secure_node has no node class to build")
+        """Add a SecureDht node (crypto overlay) to the same network."""
+        from ..crypto.securedht import SecureDht, SecureDhtConfig
+        i, sock, node_id, rng = self._node_wiring(i)
+        cfg = SecureDhtConfig(DhtConfig(node_id=node_id), identity)
+        dht = SecureDht(sock, None, cfg, scheduler=self.scheduler, rng=rng)
+        self.nodes.append(dht)
+        return dht
 
     def addr_of(self, dht: Dht) -> SockAddr:
         t = dht.engine.t4 or dht.engine.t6

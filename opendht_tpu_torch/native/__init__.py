@@ -7,6 +7,8 @@ exact 160-bit XOR-metric ops, k-closest selection, the sliding-window
 rate limiter and the constant-time token compare.  Every entry point
 has a pure-Python twin that gives the same answers, used where no
 compiler exists; :func:`available` says which one runs.
+:mod:`.argon2` (the password KDF's Argon2i) is built the same way
+(:func:`build_library`).
 
 The device engines own the batched work; this library owns the host
 node's hot loops.
@@ -28,10 +30,39 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 
-def _build_path() -> str:
-    with open(_SRC, "rb") as f:
+def library_path(src: str, stem: str) -> str:
+    """``build/lib<stem>-<hash of src>.so``: an edit rebuilds it."""
+    with open(src, "rb") as f:
         tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(_BUILD, f"libdhtcore-{tag}.so")
+    return os.path.join(_BUILD, f"lib{stem}-{tag}.so")
+
+
+def _build_path() -> str:
+    return library_path(_SRC, "dhtcore")
+
+
+def build_library(src: str, stem: str) -> Optional[ctypes.CDLL]:
+    """``src`` built by g++ into :func:`library_path` (once per source
+    text) and loaded; ``None`` where there is no compiler or the build
+    fails."""
+    so = library_path(src, stem)
+    if not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.tmp"
+        try:
+            os.makedirs(_BUILD, exist_ok=True)
+            subprocess.run(
+                ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", src,
+                 "-o", tmp],
+                check=True, capture_output=True, timeout=120)
+            os.replace(tmp, so)
+        except Exception as e:  # no compiler / failed build: fall back
+            print(f"{stem}: native build unavailable ({e})",
+                  file=sys.stderr)
+            return None
+    try:
+        return ctypes.CDLL(so)
+    except OSError:
+        return None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -39,23 +70,8 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    so = _build_path()
-    if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        try:
-            os.makedirs(_BUILD, exist_ok=True)
-            subprocess.run(
-                ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC,
-                 "-o", tmp],
-                check=True, capture_output=True, timeout=120)
-            os.replace(tmp, so)
-        except Exception as e:  # no compiler / failed build: fall back
-            print(f"dhtcore: native build unavailable ({e})",
-                  file=sys.stderr)
-            return None
-    try:
-        lib = ctypes.CDLL(so)
-    except OSError:
+    lib = build_library(_SRC, "dhtcore")
+    if lib is None:
         return None
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)

@@ -8,7 +8,9 @@ packs as its base, list and tuple both as an array, ``bytes`` and
 host modules never pack, such as extension types).  :func:`unpackb` returns what ``msgpack.unpackb(b, raw=False,
 strict_map_key=False)`` returns: str as ``str``, bin as ``bytes``,
 arrays as lists, maps as dicts with keys of any hashable type, an
-extension as :class:`ExtType`.  Every malformed input raises
+extension as :class:`ExtType`.  :class:`Unpacker` reads a stream of
+objects fed in pieces, as ``msgpack.Unpacker(raw=False)`` fed with
+``feed`` does.  Every malformed input raises
 ``ValueError`` (truncated input, trailing bytes, the reserved ``0xc1``
 byte, invalid UTF-8, too deep a nesting), as msgpack's errors do; an
 array or map as a map key raises ``TypeError`` (unhashable), as there.
@@ -19,7 +21,7 @@ from __future__ import annotations
 import struct
 from collections import namedtuple
 
-__all__ = ["ExtType", "packb", "unpackb"]
+__all__ = ["ExtType", "Unpacker", "packb", "unpackb"]
 
 ExtType = namedtuple("ExtType", "code data")
 
@@ -187,6 +189,10 @@ _LEN_CODE = {1: "B", 2: "H", 4: "I"}
 _FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
 
 
+class _Incomplete(ValueError):
+    """The input ends inside an object."""
+
+
 class _Reader:
     __slots__ = ("buf", "pos", "end", "strict")
 
@@ -199,14 +205,14 @@ class _Reader:
     def take(self, n: int) -> bytes:
         p = self.pos
         if p + n > self.end:
-            raise ValueError("Unpack failed: incomplete input")
+            raise _Incomplete("Unpack failed: incomplete input")
         self.pos = p + n
         return self.buf[p:p + n]
 
     def scalar(self, code: str, width: int):
         p = self.pos
         if p + width > self.end:
-            raise ValueError("Unpack failed: incomplete input")
+            raise _Incomplete("Unpack failed: incomplete input")
         self.pos = p + width
         return _UNPACK[code](self.buf, p)[0]
 
@@ -214,7 +220,7 @@ class _Reader:
         if depth < 0:
             raise ValueError("recursion limit exceeded.")
         if self.pos >= self.end:
-            raise ValueError("Unpack failed: incomplete input")
+            raise _Incomplete("Unpack failed: incomplete input")
         t = self.buf[self.pos]
         self.pos += 1
         if t < 0x80:
@@ -275,3 +281,30 @@ def unpackb(blob, strict_map_key: bool = False) -> object:
     if r.pos != r.end:
         raise ValueError("unpack(b) received extra data.")
     return o
+
+
+class Unpacker:
+    """Objects from a byte stream fed in arbitrary pieces: ``feed``
+    appends, iterating yields each whole object buffered and keeps a
+    partial one for the next ``feed``."""
+
+    def __init__(self, strict_map_key: bool = False):
+        self._buf = b""
+        self._strict = strict_map_key
+
+    def feed(self, data) -> None:
+        self._buf += bytes(data)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self._buf:
+            raise StopIteration
+        r = _Reader(self._buf, self._strict)
+        try:
+            o = r.obj(NEST_LIMIT)
+        except _Incomplete:
+            raise StopIteration from None
+        self._buf = self._buf[r.pos:]
+        return o

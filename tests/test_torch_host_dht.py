@@ -208,10 +208,38 @@ def test_callback_sequences_equal(runs):
     assert j == t
 
 
-def test_add_secure_node_names_what_is_missing():
-    net = tnet.DhtNetwork(1, seed=1)
-    with pytest.raises(NotImplementedError, match="SecureDht"):
-        net.add_secure_node()
+@pytest.mark.parametrize("with_identity", [False, True])
+def test_add_secure_node_builds_secure_dht(with_identity):
+    """``add_secure_node`` adds the port's ``SecureDht`` with the same
+    node id, types and announced certificate as JAX's."""
+    pytest.importorskip("cryptography")
+    import opendht_tpu.crypto.identity as jid
+    import opendht_tpu_torch.crypto.identity as tid
+    from opendht_tpu_torch.crypto.securedht import SecureDht
+    ident = jid.generate_identity("n", key_length=1024) if with_identity \
+        else None
+    port_ident = None if ident is None else tid.Identity(
+        tid.PrivateKey.from_der(ident.key.serialize()),
+        tid.Certificate.from_der(ident.certificate.packed()))
+    nodes = {}
+    for name, net_mod, idt in (("jax", jnet, ident),
+                               ("port", tnet, port_ident)):
+        net = net_mod.DhtNetwork(2, seed=1)
+        node = net.add_secure_node(idt)
+        net.interconnect()
+        net.run(2.0)
+        nodes[name] = (node, net)
+    (j, jn), (t, tn) = nodes["jax"], nodes["port"]
+    assert isinstance(t, SecureDht) and tn.nodes[-1] is t
+    assert bytes(t.myid) == bytes(j.myid)
+    assert sorted(t.types) == sorted(j.types)
+    assert (t.get_id() is None) == (ident is None)
+    if ident is not None:
+        assert bytes(t.get_id()) == bytes(j.get_id())
+        cid = t.certificate.get_id()
+        assert [v.packed() for v in t.get_local(cid)] == \
+            [v.packed() for v in j.get_local(j.certificate.get_id())]
+        assert t.get_local(cid)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``opendht_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX, the JAX package or ``msgpack`` (the port
-carries its own MessagePack codec, ``utils/mpack.py``)."""
+``chip_smoke.py`` imports JAX, the JAX package, ``msgpack`` or
+``argon2`` (the port carries its own MessagePack codec,
+``utils/mpack.py``, and its own Argon2i, ``native/argon2.cpp``)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "opendht_tpu", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "opendht_tpu", "msgpack", "argon2")
 
 
 def _port_files():
