@@ -4,8 +4,8 @@ health, soak, resident), hop-model fidelity, keyspace density, and the
 sweep, soak and resident-loop summaries.
 
 :mod:`~opendht_tpu_torch.obs.ledger` writes the JAX package's
-``cost_ledger`` artifact, which JAX's ``tools/check_trace.py`` and
-``tools/roofline.py`` read unchanged.
+``cost_ledger`` artifact, which ``tools/check_trace.py`` and
+``tools/roofline.py`` read unchanged (the port's own copies and JAX's).
 """
 
 from .health import (  # noqa: F401

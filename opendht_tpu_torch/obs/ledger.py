@@ -2,8 +2,8 @@
 
 The port's counterpart of ``opendht_tpu/obs/ledger.py``.  Three planes,
 one artifact in the JAX package's schema (``kind: cost_ledger``), so
-JAX's ``tools/check_trace.py`` (``check_ledger_obj``) and
-``tools/roofline.py`` judge it unchanged:
+``tools/check_trace.py`` (``check_ledger_obj``) and ``tools/roofline.py``
+judge it unchanged, the port's own copies as JAX's:
 
 * **kernel plane** — :meth:`CostLedger.instrument` wraps the port's
   device entry points (:data:`ENTRY_POINTS`) in place: every
@@ -87,6 +87,8 @@ import warnings
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from ..models.swarm import resolve_device
 
 _PKG = "opendht_tpu_torch"
 
@@ -196,9 +198,10 @@ def hbm_watermark(device=None) -> dict:
     ``.peak`` (``source: "memory_stats"``; the peak is
     ``torch.cuda.max_memory_allocated()``); elsewhere the live CPU
     tensor bytes (``source: "live_tensors"``), whose peak callers track
-    as the largest sample (:meth:`CostLedger.sample_hbm`)."""
-    dev = torch.device("cuda" if device is None and
-                       torch.cuda.is_available() else (device or "cpu"))
+    as the largest sample (:meth:`CostLedger.sample_hbm`).  ``device``
+    resolves as the entry points' does: the card unless ``"cpu"`` is
+    asked for, raising where there is no card."""
+    dev = resolve_device(device)
     if dev.type == "cuda":
         stats = torch.cuda.memory_stats(dev)
         live = int(stats.get("allocated_bytes.all.current", 0))
@@ -223,16 +226,15 @@ class CostLedger:
     """Cost-attribution recorder: function walls and calls, device
     memory watermarks, phase tables — one artifact (:meth:`to_dict`),
     exportable as Prometheus gauges (:meth:`export_metrics`).
-    ``device`` (default: the card where there is one) is the device the
-    memory plane samples and the barriers wait on."""
+    ``device`` (default: the card; raises where there is none unless
+    ``"cpu"`` is asked for) is the device the memory plane samples and
+    the barriers wait on."""
 
     # Bounded per-function wall samples.
     MAX_WALL_SAMPLES = 4096
 
     def __init__(self, device=None):
-        self.device = torch.device(
-            device if device is not None else
-            ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.kernels: Dict[str, dict] = {}
         self.spans: List[dict] = []
         self.round_phases: Optional[dict] = None

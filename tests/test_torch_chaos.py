@@ -15,7 +15,6 @@ import jax.numpy as jnp
 import torch
 
 from opendht_tpu.models import swarm as jsw
-from opendht_tpu.tools.check_trace import check_trace_obj
 from opendht_tpu_torch.convert import state_from_numpy, swarm_from_numpy
 from opendht_tpu_torch.models import swarm as tsw
 
@@ -180,32 +179,58 @@ def test_chaos_lookup_bit_equal(compact, eclipse, defend, byz_swarm,
     assert bool(res_t.done.all())
 
 
+@pytest.fixture(params=["jax", "port"])
+def ct(request):
+    """The JAX package's artifact checker and the port's own copy."""
+    if request.param == "jax":
+        from opendht_tpu.tools import check_trace
+    else:
+        from opendht_tpu_torch.tools import check_trace
+    return check_trace
+
+
+@pytest.fixture(scope="module")
+def port_drop_traced(byz_swarm, targets):
+    """The port's traced and untraced runs of reply loss 0.3 with
+    Byzantine responders, once per ``compact``."""
+    runs = {}
+
+    def run(compact):
+        if compact not in runs:
+            sw_t, tg_t = to_port(byz_swarm), to_torch(targets)
+            faults = tsw.LookupFaults(drop_frac=0.3, eclipse=False, seed=11)
+            stats = {}
+            traced = tsw.chaos_lookup(
+                sw_t, CFG_T, tg_t, faults=faults,
+                origins=honest_origins(byz_swarm), collect_trace=True,
+                compact=compact, stats=stats, track_lifecycle=True,
+                device="cpu")
+            plain = tsw.chaos_lookup(sw_t, CFG_T, tg_t, faults=faults,
+                                     origins=honest_origins(byz_swarm),
+                                     compact=compact, device="cpu")
+            runs[compact] = traced, stats, plain
+        return runs[compact]
+
+    return run
+
+
 @pytest.mark.parametrize("compact", [True, False])
-def test_chaos_lookup_drop_traced_bit_equal(compact, byz_swarm, targets,
-                                            jax_chaos):
+def test_chaos_lookup_drop_traced_bit_equal(compact, jax_chaos,
+                                            port_drop_traced, ct):
     """Reply loss 0.3 with Byzantine responders, the flight recorder on:
     results, strikes and every trace row (``poison``, ``strikes`` and
     ``convictions`` included) against JAX's traced run; the untraced
     port run agrees; the lifecycle rounds ride along; and the port's
     ``trace_to_dict``, wrapped as ``bench.py``'s ``dump_trace`` writes
-    it, passes the JAX package's trace checker."""
+    it, passes the trace checker, JAX's and the port's."""
     faults = jsw.LookupFaults(drop_frac=0.3, eclipse=False, seed=11)
     res_j, sk_j, tr_j = jax_chaos(faults, trace=True)
-    sw_t, tg_t = to_port(byz_swarm), to_torch(targets)
-    stats = {}
-    res_t, sk_t, tr_t = tsw.chaos_lookup(
-        sw_t, CFG_T, tg_t, faults=tsw.LookupFaults(*faults),
-        origins=honest_origins(byz_swarm), collect_trace=True,
-        compact=compact, stats=stats, track_lifecycle=True, device="cpu")
+    (res_t, sk_t, tr_t), stats, plain = port_drop_traced(compact)
     assert_same(res_j, res_t, "traced results")
     assert_same([sk_j], [sk_t], "traced strikes")
     assert_same(tr_j, tr_t, f"trace compact={compact}")
     assert int(tr_t.poison.sum()) > 0 and int(tr_t.drops.sum()) > 0
     assert int(tr_t.convictions[int(tr_t.rounds) - 1]) > 0
-    plain = tsw.chaos_lookup(sw_t, CFG_T, tg_t,
-                             faults=tsw.LookupFaults(*faults),
-                             origins=honest_origins(byz_swarm),
-                             compact=compact, device="cpu")
     assert_same(list(res_t) + [sk_t], list(plain[0]) + [plain[1]],
                 "traced vs untraced")
     assert bool((stats["completed_round"] >= 0).all())
@@ -216,7 +241,7 @@ def test_chaos_lookup_drop_traced_bit_equal(compact, byz_swarm, targets,
                      "done_frac": float(res_t.done.float().mean())},
            "trace": tsw.trace_to_dict(tr_t, NL),
            "hop_histogram": [int(v) for v in hist]}
-    assert check_trace_obj(obj) == []
+    assert ct.check_trace_obj(obj) == []
     assert obj["trace"] == jsw.trace_to_dict(tr_j, NL)
 
 

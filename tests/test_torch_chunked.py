@@ -30,6 +30,7 @@ from opendht_tpu.models import swarm as jsw
 from opendht_tpu_torch.convert import store_from_numpy
 from opendht_tpu_torch.models import chunked_values as tcv
 from opendht_tpu_torch.models import storage as tst
+from opendht_tpu_torch.models import swarm as tsw
 
 from torch_port_cases import (as_int64, assert_same, jax_origins, jax_swarm,
                               port_cfg, port_swarm, to_torch)
@@ -196,6 +197,95 @@ def test_roundtrip_variable_lengths(scfg, world, host_root):
                          1, origins=s.og(12), device="cpu")
     short = (np.minimum(lens, PARTS * W * 4).astype(int) + 3) // 4 > W
     assert not gt.hit.numpy()[short].any()
+
+
+def test_full_rings_read_missing(world, host_root):
+    """A store too small for its values (2 slots a node): the rings evict
+    the oldest parts, and both packages read the same values missing,
+    never garbled.  On the card, 1,048,576 values of up to 4 parts on
+    10M nodes overflow some 16-slot rings the same way, and the chunked
+    checker's exact counts (``hit == values`` on the clean leg) then fail
+    in both packages: JAX's checker and the port's give the clean leg's
+    "not byte-exact" violation for these counts."""
+    from opendht_tpu.tools import check_trace as jct
+    from opendht_tpu_torch.tools import check_trace as tct
+    scfg = jst.StoreConfig(**dict(BASE, slots=2))
+    pl, lens, keys = values(2)
+    s = Plane(world, scfg)
+    s.announce(keys, np.arange(P, dtype=np.uint32) + 9,
+               np.full(P, 2, np.uint32), 0, 11, pl, lens, "announce")
+    g = s.get(keys, 12, "get")
+    hit = g.hit.numpy()
+    assert 0 < hit.sum() < P
+    assert (g.payload.numpy()[hit] == oracle(pl, lens)[hit]).all()
+    leg = {"hit": int(hit.sum()), "missing": int(P - hit.sum()),
+           "garbled": 0, "exact": int(hit.sum()), "affected": 0,
+           "trace": {f: 0 for f in ("requests", "accepts_update",
+                                    "accepts_new", "rejects", "notified",
+                                    "integrity_rejects")}}
+    legs = {name: dict(leg) for name in ("clean", "torn_drop", "kill_mid",
+                                         "torn_overwrite", "forge")}
+    obj = {"kind": "swarm_chunked_trace", "bench": {}, "digest_parity": True,
+           "params": {"values": P}, "conservation": {},
+           "arms": {"defended": {"legs": legs}, "undefended": {"legs": legs}},
+           "heal": {}}
+    errs = jct.check_chunked_obj(obj)
+    assert tct.check_chunked_obj(obj) == errs
+    assert f"defended/clean: not byte-exact — hit {leg['hit']}, exact " \
+        f"{leg['hit']}, garbled 0 over {P} values" in errs
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("leg", ["clean", "kill_mid", "torn_drop"])
+def test_ring_oracle_predicts_reads(world, leg):
+    """``chip_smoke.py``'s ring oracle (``ring_survivors`` and
+    ``ring_readable``, from the replicas and the ring rule alone)
+    predicts, row for row, which values the port's ``get_chunked``
+    reads whole from a store too small for them (4 slots a node, ring
+    refusals and overwrites both): the oracle that ties the card's
+    full-ring waiver to a count."""
+    cs = _chip_smoke()
+    _, _, sw_t, cfg_t = world
+    p, parts = 256, PARTS
+    scfg = tst.StoreConfig(**dict(BASE, slots=4))
+    pl, lens, keys = values(5, p=p)
+    pl, lens, keys = to_torch(pl), to_torch(lens), to_torch(keys)
+    words = (lens + 3) // 4
+    n_parts = (-(-words // W)).clamp(1, parts)
+    j = torch.arange(parts)
+    sent = j[None, :] < n_parts[:, None]
+    drop = torch.zeros((p, parts), dtype=torch.bool)
+    drop[::3, 0] = True
+    faults = {"clean": ({}, sent),
+              "kill_mid": ({"part_range": (0, 1)}, sent & (j[None, :] < 1)),
+              "torn_drop": ({"part_drop_mask": drop}, sent & ~drop)}
+    kw, sent = faults[leg]
+
+    def og(seed):
+        return jax_origins(world[0], jax.random.PRNGKey(seed), p)
+    store = tst.empty_store(cfg_t.n_nodes, scfg, torch.device("cpu"))
+    store, rep = tcv.announce_chunked(
+        sw_t, cfg_t, store, scfg, keys, torch.arange(p) + 1,
+        torch.ones(p, dtype=torch.int64), 0, None, pl, lens, origins=og(31),
+        device="cpu", **kw)
+    got = tcv.get_chunked(sw_t, cfg_t, store, scfg, keys, None, parts,
+                          origins=og(32), device="cpu")
+    f_w, f_r = (tsw.lookup(sw_t, cfg_t, keys, origins=og(s),
+                           device="cpu").found for s in (31, 32))
+    surv = cs.ring_survivors(f_w, keys, sent, cfg_t.n_nodes, scfg.slots)
+    pred = cs.ring_readable(surv, f_w, f_r, n_parts, sw_t.alive)
+    assert int(surv.sum()) == int(store.used.sum())
+    assert 0 < int(got.hit.sum()) < p
+    assert torch.equal(got.hit, pred)
 
 
 def test_churn_republish(world):

@@ -6,12 +6,13 @@ list (with splits), JAX's lookup origins handed across — the store,
 ``stats`` and ``trie_snapshot`` equal after the build, and
 ``leaf_search``, ``lookup_batch`` and ``range_query`` equal JAX's and
 :class:`PhtOracle`'s.  A port-made ``swarm_index_trace`` artifact passes
-JAX's ``check_index_obj``.
+JAX's ``check_index_obj`` and the port's.
 
 Every store get and put of both packages is padded to one width
 (``_pow2_width`` patched in both modules), so JAX compiles its get and
 announce programs once."""
 
+import copy
 import hashlib
 import struct
 
@@ -244,15 +245,29 @@ def test_store_geometry_checks():
                            sc, SPEC_T, device="cpu")
 
 
-def test_port_artifact_passes_check_index_obj(one_width, monkeypatch):
+@pytest.fixture(params=["jax", "port"])
+def ct(request):
+    """The JAX package's artifact checker and the port's own copy."""
+    if request.param == "jax":
+        from opendht_tpu.tools import check_trace
+    else:
+        from opendht_tpu_torch.tools import check_trace
+    return check_trace
+
+
+@pytest.fixture(scope="module")
+def index_artifact(one_width):
     """A port-only build (the port's own draws, its own batch widths)
     of ``bench.py --mode index``'s entry list, cut to 48 entries over 32
-    ranks, on the 512-node swarm: scans exact against the oracle,
-    written as the bench's artifact, accepted by ``check_index_obj``; a
-    broken split count is caught."""
-    from opendht_tpu.tools.check_trace import check_index_obj
-    monkeypatch.setattr(ti, "_pow2_width",
-                        lambda m, floor=16: tst.pow2_width(m, floor))
+    ranks, on the 512-node swarm, scans exact against the oracle,
+    written as the bench's artifact; and its build stats."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ti, "_pow2_width",
+                   lambda m, floor=16: tst.pow2_width(m, floor))
+        return _index_artifact()
+
+
+def _index_artifact():
     sw, cfg = jax_swarm()
     sw_t, cfg_t = port_swarm(sw), port_cfg(cfg)
     spec = ti.IndexSpec.from_key_spec("bench", {"k": 4})
@@ -323,7 +338,14 @@ def test_port_artifact_passes_check_index_obj(one_width, monkeypatch):
                          "entries_returned": sum(len(r) for r in res),
                          "extras": extras,
                          "leaves_touched_mean": float(leaves.mean())}}}
-    assert check_index_obj(obj) == []
+    return obj, stats
+
+
+def test_port_artifact_passes_check_index_obj(index_artifact, ct):
+    """The port's index artifact is accepted by ``check_index_obj``,
+    JAX's and the port's; a broken split count is caught."""
+    obj, stats = copy.deepcopy(index_artifact)
+    assert ct.check_index_obj(obj) == []
     assert stats["splits"] > 0
     obj["index"]["split_levels"] += 1
-    assert any("split" in e for e in check_index_obj(obj))
+    assert any("split" in e for e in ct.check_index_obj(obj))

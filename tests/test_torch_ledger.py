@@ -13,13 +13,16 @@
 * ``measure_round_phases``: JAX's phase names, telescoping rows, the
   full prefix equal to ``lookup_step`` (augmented, plain and fused-round
   tables, and the laddered table of the CPU's rank merge).
-* The port's artifact passes JAX's ``check_ledger_obj``; the corrupted
-  artifacts of ``tests/test_ledger.py`` fail it; ``export_metrics``
-  renders JAX's gauge names.
+* The port's artifact passes ``check_ledger_obj``, JAX's and the
+  port's; the corrupted artifacts of ``tests/test_ledger.py`` fail both;
+  ``export_metrics`` renders JAX's gauge names.  ``CostLedger()`` and
+  ``hbm_watermark()`` raise where there is no card.
 * The memory plane's peak is at least its live figure and tracks the
   largest sample; nothing is built or captured across a replay.
 """
 
+import copy
+import functools
 import importlib
 import json
 
@@ -33,7 +36,6 @@ import torch
 from opendht_tpu.models import storage as jst
 from opendht_tpu.models import swarm as jsw
 from opendht_tpu.obs import ledger as jled
-from opendht_tpu.tools.check_trace import check_ledger_obj
 from opendht_tpu.utils import metrics as jmet
 from opendht_tpu_torch.models import storage as tst
 from opendht_tpu_torch.models import swarm as tsw
@@ -220,8 +222,20 @@ def _check_table(t, names, width):
     assert t["width"] == width
 
 
-@pytest.mark.parametrize("form", ["aug", "plain", "fused-round"])
-def test_round_phases_telescope_and_equal_the_round(form):
+@pytest.fixture(params=["jax", "port"])
+def ct(request):
+    """The JAX package's artifact checker and the port's own copy."""
+    if request.param == "jax":
+        from opendht_tpu.tools import check_trace
+    else:
+        from opendht_tpu_torch.tools import check_trace
+    return check_trace
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_tables(form):
+    """The swarm, targets and phase tables of one form (measured once for
+    both checkers)."""
     cfg = tsw.SwarmConfig.for_nodes(1024, device="cpu",
                                     aug_tables=form != "plain",
                                     merge_impl=("fused-round"
@@ -233,14 +247,21 @@ def test_round_phases_telescope_and_equal_the_round(form):
     t = tled.measure_round_phases(s, cfg, tg,
                                   torch.Generator().manual_seed(5),
                                   repeats=2)
+    lad = None if form == "fused-round" else tled.measure_round_phases(
+        s, cfg, tg, torch.Generator().manual_seed(5), repeats=2, merge_w=32,
+        advance_rounds=3)
+    return cfg, s, tg, t, lad
+
+
+@pytest.mark.parametrize("form", ["aug", "plain", "fused-round"])
+def test_round_phases_telescope_and_equal_the_round(form, ct):
+    cfg, s, tg, t, lad = _phase_tables(form)
+    t, lad = copy.deepcopy(t), copy.deepcopy(lad)
     _check_table(t, NAMES_PLAIN if form == "plain" else NAMES_AUG, 256)
     if form == "fused-round":
         with pytest.raises(ValueError, match="full width"):
             tled.measure_round_phases(s, cfg, tg, merge_w=32)
         return
-    lad = tled.measure_round_phases(s, cfg, tg,
-                                    torch.Generator().manual_seed(5),
-                                    repeats=2, merge_w=32, advance_rounds=3)
     _check_table(lad, NAMES_PLAIN if form == "plain" else NAMES_AUG, 256)
     assert lad["merge_w"] == 32 and lad["advance_rounds"] == 3
     if form == "aug":
@@ -251,11 +272,11 @@ def test_round_phases_telescope_and_equal_the_round(form):
         obj = json.loads(json.dumps(led.to_dict(bench_row={
             "metric": "swarm_lookups_per_sec", "value": 1.0,
             "round_wall_p50": t["fused_round_wall_s"]})))
-        assert check_ledger_obj(obj) == []
-        _rejects(obj)
+        assert ct.check_ledger_obj(obj) == []
+        _rejects(obj, ct.check_ledger_obj)
 
 
-def _rejects(base):
+def _rejects(base, check_ledger_obj):
     """``tests/test_ledger.py``'s corrupted artifacts, on the port's."""
     def bad(edit):
         obj = json.loads(json.dumps(base))
@@ -333,3 +354,16 @@ def test_export_metrics_gauge_names_equal_jax(world):
     assert 'dht_ledger_round_phase_wall_seconds{phase="merge"} 0.5' \
         in texts[1]
     assert 'kernel="swarm.lookup_step"' in texts[1]
+
+
+@pytest.mark.parametrize("make", ["hbm_watermark", "CostLedger"])
+def test_ledger_default_device_needs_a_card(monkeypatch, make):
+    """Without a card the default device raises, as the entry points'
+    does; ``device="cpu"`` is the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(tled, make)()
+    if make == "CostLedger":
+        assert tled.CostLedger("cpu").device.type == "cpu"
+    else:
+        assert tled.hbm_watermark("cpu")["source"] == "live_tensors"

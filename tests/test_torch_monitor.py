@@ -7,7 +7,10 @@ the plain and the defended chaos engine — the records, the freshness
 plane, the lookup results and the hop histograms.  The plane is a pure
 observer (the same results with it off), the ``obs.health`` copies
 equal JAX's functions, and a port-written ``swarm_monitor_trace``
-artifact passes JAX's checker.  Every comparison is exact."""
+artifact passes JAX's checker and the port's.  Every comparison is
+exact."""
+
+import copy
 
 import numpy as np
 import pytest
@@ -227,12 +230,21 @@ def test_health_copies_equal():
         assert jm._percentile_from_hist(h, q) == tm._percentile_from_hist(h, q)
 
 
-def test_port_artifact_passes_check_monitor_obj():
+@pytest.fixture(params=["jax", "port"])
+def ct(request):
+    """The JAX package's artifact checker and the port's own copy."""
+    if request.param == "jax":
+        from opendht_tpu.tools import check_trace
+    else:
+        from opendht_tpu_torch.tools import check_trace
+    return check_trace
+
+
+@pytest.fixture(scope="module")
+def monitor_artifact():
     """A port-only run on a 2,048-node swarm (a full crawl, then four
     sweeps of kill 0.05 + heal) written as ``bench.py --mode
-    monitor``'s artifact passes JAX's ``check_monitor_obj``; a broken
-    conservation count is caught."""
-    from opendht_tpu.tools.check_trace import check_monitor_obj
+    monitor``'s artifact, and its sweep summary."""
     cfg = tsw.SwarmConfig.for_nodes(2048, device="cpu")
     gen = torch.Generator().manual_seed(4)
     eng = tm.MonitorEngine(tsw.build_swarm(cfg, gen, device="cpu"), cfg,
@@ -268,7 +280,14 @@ def test_port_artifact_passes_check_monitor_obj():
             "density": th.poisson_density_profile(eng.bucket_counts[0]),
         },
     }
-    assert check_monitor_obj(obj) == []
+    return obj, summary
+
+
+def test_port_artifact_passes_check_monitor_obj(monitor_artifact, ct):
+    """The port's monitor artifact passes JAX's ``check_monitor_obj``
+    and the port's; a broken conservation count is caught."""
+    obj, summary = copy.deepcopy(monitor_artifact)
+    assert ct.check_monitor_obj(obj) == []
     assert summary["deaths_detected"] > 0
     obj["monitor"]["sweeps"][2]["tracked_alive"] += 1
-    assert any("conserve" in e for e in check_monitor_obj(obj))
+    assert any("conserve" in e for e in ct.check_monitor_obj(obj))

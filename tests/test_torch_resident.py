@@ -429,19 +429,36 @@ def serve_artifact(rep: dict) -> dict:
     }
 
 
-def test_port_artifact_passes_check_serve_obj(world, schedule):
-    """A port-written resident artifact passes JAX's ``check_serve_obj``
-    (ring conservation, depth bounds, cache block, quantiles).  Under
-    the virtual clock every clock read is a tick, so the host
-    orchestration share is tick arithmetic, not a measurement: the run
-    records a budget of 1.0 for it.  A broken ring count is caught."""
-    from opendht_tpu.tools.check_trace import check_serve_obj
+@pytest.fixture(params=["jax", "port"])
+def ct(request):
+    """The JAX package's artifact checker and the port's own copy."""
+    if request.param == "jax":
+        from opendht_tpu.tools import check_trace
+    else:
+        from opendht_tpu_torch.tools import check_trace
+    return check_trace
+
+
+@pytest.fixture(scope="module")
+def resident_report(world, schedule):
+    """A resident run with the cache on, under the virtual clock."""
     (tsj, kj, clj), _ = schedule
     et = engines(world, cache_slots=64)[1]
     clock, sleep = virtual_clock()
-    rep = ts.serve_resident(et, tsj, kj, klass=clj, clock=clock, sleep=sleep,
-                            host_orchestration_budget=1.0,
-                            generator=torch.Generator().manual_seed(5))
+    return ts.serve_resident(et, tsj, kj, klass=clj, clock=clock,
+                             sleep=sleep, host_orchestration_budget=1.0,
+                             generator=torch.Generator().manual_seed(5))
+
+
+def test_port_artifact_passes_check_serve_obj(resident_report, ct):
+    """A port-written resident artifact passes ``check_serve_obj``, JAX's
+    and the port's (ring conservation, depth bounds, cache block,
+    quantiles).  Under the virtual clock every clock read is a tick, so
+    the host orchestration share is tick arithmetic, not a measurement:
+    the run records a budget of 1.0 for it.  A broken ring count is
+    caught."""
+    check_serve_obj = ct.check_serve_obj
+    rep = resident_report
     art = serve_artifact(rep)
     assert check_serve_obj(art) == []
     summary = resident_summary(rep)

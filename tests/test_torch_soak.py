@@ -15,6 +15,7 @@ rendered registries are equal.  The loop refuses what it cannot serve,
 and a port-made ``swarm_soak_trace`` artifact passes JAX's
 ``check_soak_obj``."""
 
+import copy
 import hashlib
 import struct
 
@@ -574,11 +575,21 @@ def test_soak_open_loop_rejects(world, case):
                           np.zeros((4, 5), np.uint32), **kw)
 
 
-def test_port_artifact_passes_check_soak_obj(world, read_heavy):
+@pytest.fixture(params=["jax", "port"])
+def ct(request):
+    """The JAX package's artifact checker and the port's own copy."""
+    if request.param == "jax":
+        from opendht_tpu.tools import check_trace
+    else:
+        from opendht_tpu_torch.tools import check_trace
+    return check_trace
+
+
+def test_port_artifact_passes_check_soak_obj(world, read_heavy, ct):
     """The port's read-heavy pair written as ``bench.py --mode soak``'s
-    artifact passes ``check_soak_obj``; a broken slot-round split is
-    caught."""
-    from opendht_tpu.tools.check_trace import check_soak_obj
+    artifact passes ``check_soak_obj``, JAX's and the port's; a broken
+    slot-round split is caught."""
+    check_soak_obj = ct.check_soak_obj
     from opendht_tpu_torch.utils.metrics import Histogram
     _, (_sj, soak), (_rj, rep, _tlj, tl), _off, (_r2, rep_off, _t2, tl_off), \
         _planes = read_heavy
@@ -637,5 +648,6 @@ def test_port_artifact_passes_check_soak_obj(world, read_heavy):
     }
     assert check_soak_obj(obj) == [], check_soak_obj(obj)
     assert rep_off["monitor_sweeps"] == [] and cfg.n_nodes == 512
+    obj = copy.deepcopy(obj)        # the rows are the fixture's timeline's
     obj["timeline"]["rows"][1]["total_slot_rounds"] += 1
     assert any("slot-rounds" in e for e in check_soak_obj(obj))
