@@ -291,6 +291,21 @@ Phases (any failure exits non-zero and prints no result line):
    them, row for row on the legs that write a fresh store once; and the
    soak's 250 ms SLO burned, a port finding taken only within the
    ratios the card reads (``SOAK_SLO_CAP``).
+24. graftlint (``opendht_tpu_torch/tools/graftlint.py``): its ``ast``,
+   ``lock`` and ``ranges`` planes and the stale-pragma pass in a child
+   process on one CPU thread with no card (this script with
+   ``--lint-child``, started beside the card-vs-CPU phases and joined
+   before the main path); its ``lower`` plane (the canonical workload at
+   2,048 nodes on the card, under the cost ledger and a dispatch
+   observer) and ``strict`` plane (JAX's seven strict workloads and the
+   resident open loop: every synchronizing CUDA call inside a host loop
+   through a pragma'd readback site, at most once each time it runs) on
+   the card there,
+   their kernel launches the ``lint`` column of the kernel table; its
+   ``budget`` plane at the end, over the whole run's kernel builds and
+   graph captures.  One ``graftlint`` line: findings by plane (any
+   finding fails the run), the pragma count, the budget table, the
+   syncs by ``file:line`` and the seconds.
 
 Prints the ``ptxas`` lines of every kernel (registers, shared memory,
 spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
@@ -308,7 +323,7 @@ spills), ``main_path``, ``fused_path``, ``traced_path``, ``heal``,
 ``repub_profile``, ``sharded_ledger``, ``store_dht_lookups``, ``host_leg``,
 ``host_scenario``, ``benchmark_swarm``, ``host_path`` and
 ``secure_path`` lines, a ``judge`` line an artifact, the ``roofline``
-line, ``elapsed`` lines between phases, the ``judging`` line (seconds
+line, the ``graftlint_card`` and ``graftlint`` lines, ``elapsed`` lines between phases, the ``judging`` line (seconds
 spent judging), a ``kernels``
 JSON line (each row with its
 launches on every path — a graph replay counts the kernels its capture
@@ -7456,6 +7471,117 @@ def phase_secure_path(sw, swarm, cfg, dev, secure_proc, card, failures):
     return launches
 
 
+def lint_child() -> int:
+    """``--lint-child``: graftlint's ``ast``, ``lock`` and ``ranges``
+    planes and the stale-pragma pass on one CPU thread with no card;
+    prints a ``lint_result`` line."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(1)
+    from opendht_tpu_torch.tools import graftlint as gl
+    from opendht_tpu_torch.tools import graftlint_ranges as gr
+    t0 = time.perf_counter()
+    srcs = gl._read_tree(REPO)
+    raw: list = []
+    found = {"ast": gl.run_plane_ast(REPO, raw_sink=raw, srcs=srcs)}
+    found["lock"], inv = gl.run_plane_lock(REPO, raw_sink=raw, srcs=srcs)
+    found["ranges"], stats = gr.run_plane_ranges(REPO, raw_sink=raw)
+    found["pragmas"], n_pragmas = gl.run_stale_pragmas(
+        REPO, raw, {"ast", "lock", "ranges"}, srcs=srcs)
+    print("lint_result " + json.dumps({
+        "findings": {k: len(v) for k, v in found.items()},
+        "rendered": [f.render() for v in found.values() for f in v],
+        "pragmas": n_pragmas, "lock_classes": inv["classes"],
+        "ranges": stats, "wall_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def start_lint():
+    """Start ``lint_child`` beside the card-vs-CPU phases (no card: the
+    child sees none)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--lint-child"], stdout=subprocess.PIPE,
+                            text=True, cwd=REPO, env=env)
+
+
+def join_lint(child, failures) -> dict:
+    out, _ = child.communicate(timeout=600)
+    result = None
+    for line in out.splitlines():
+        if line.startswith("lint_result "):
+            result = json.loads(line.split(" ", 1)[1])
+        else:
+            log(line)
+    if child.returncode != 0 or result is None:
+        failures.append(f"the lint child exited {child.returncode}")
+        return {"findings": {"child": 1}, "rendered": [], "pragmas": None}
+    return result
+
+
+def phase_graftlint_card(card, failures) -> tuple:
+    """graftlint's ``lower`` and ``strict`` planes on the card (the
+    canonical workload at 2,048 nodes; JAX's seven strict workloads and
+    the resident open loop under the sync contract).  Returns ``(launches, record)``: the
+    phase's kernel launches (the kernel table's ``lint`` column) and its
+    findings, syncs and seconds."""
+    import torch
+    from opendht_tpu_torch.ops import kernels
+    from opendht_tpu_torch.tools import graftlint as gl
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lower = gl.run_plane_lower(REPO, "cuda")
+    run = gl.recorded_run(REPO, "cuda")
+    t1 = time.perf_counter()
+    strict, st = gl.run_plane_strict(REPO, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    rec = {"findings": {"lower": len(lower), "strict": len(strict)},
+           "rendered": [f.render() for f in lower + strict],
+           "entries_called": sum(1 for v in run.lint.calls.values() if v),
+           "syncs": st.get("syncs"), "sync_sites": st.get("sync_sites"),
+           "one_off_syncs": st.get("one_off_syncs"),
+           "site_runs": st.get("site_runs"),
+           "lower_s": t1 - t0, "strict_s": time.perf_counter() - t1,
+           "launches": launches}
+    log("graftlint_card " + json.dumps({**rec, "card": card}))
+    for f in lower + strict:
+        failures.append(f"graftlint: {f.render()}")
+    if launches["merge_round"] <= 0:
+        failures.append("merge_round was not launched on the lint path")
+    return launches, rec
+
+
+def graftlint_line(child: dict, card_rec: dict, card, failures) -> None:
+    """The ``budget`` plane over the whole run, then the one
+    ``graftlint`` line."""
+    from opendht_tpu_torch.tools import graftlint as gl
+    from opendht_tpu_torch.tools import graftlint_ranges as gr
+    with open(os.path.join(REPO, gl.LEDGER_PATH), encoding="utf-8") as f:
+        src = f.read()
+    table = gr.measure_budgets(gl.parse_entry_points(src))
+    budget = gr.check_budgets(
+        {k: v["measured"] for k, v in table.items()},
+        {k: v["budget"] for k, v in table.items()})
+    findings = {**child.get("findings", {}),
+                **card_rec.get("findings", {}), "budget": len(budget)}
+    for f in child.get("rendered", []):
+        failures.append(f"graftlint: {f}")
+    for f in budget:
+        failures.append(f"graftlint: {f.render()}")
+    log("graftlint " + json.dumps({
+        "findings": findings, "pragmas": child.get("pragmas"),
+        "budget": {k: f"{v['measured']}/{v['budget']}"
+                   for k, v in table.items()},
+        "syncs": card_rec.get("sync_sites"),
+        "one_off_syncs": card_rec.get("one_off_syncs"),
+        "seconds": {"child": child.get("wall_s"),
+                    "lower": card_rec.get("lower_s"),
+                    "strict": card_rec.get("strict_s")},
+        "card": card}))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7485,6 +7611,8 @@ def main() -> int:
     CHILDREN.append(host_proc)
     secure_proc = start_secure()
     CHILDREN.append(secure_proc)
+    lint_proc = start_lint()
+    CHILDREN.append(lint_proc)
     try:
         cpu_threads = torch.get_num_threads()
         # One thread for the store child; the host child ends within
@@ -7510,6 +7638,13 @@ def main() -> int:
         if child.poll() is None:
             child.kill()
             child.wait()
+
+    # ---- graftlint: the child's planes, then lower and strict here -----
+    lint_child_rec = join_lint(lint_proc, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s (lint child "
+        f"joined)")
+    launches_lint, lint_card_rec = phase_graftlint_card(card, failures)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     # ---- the main path -------------------------------------------------
     cfg = sw.SwarmConfig.for_nodes(N_NODES)
@@ -7673,7 +7808,8 @@ def main() -> int:
                "sharded_storage": launches_ss,
                "sharded_storage_ranks": launches_st["storage"],
                "sharded_index_ranks": launches_st["index"],
-               "sharded_resident_ranks": launches_st["resident"]}
+               "sharded_resident_ranks": launches_st["resident"],
+               "lint": launches_lint}
     for row in kernel_rows:
         row["launches_by_path"] = {k: v[row["name"]]
                                    for k, v in by_path.items()}
@@ -7683,6 +7819,7 @@ def main() -> int:
                                   "max_abs_err": t[2], "bound_ms": t[3],
                                   "bound_by": t[4]}
 
+    graftlint_line(lint_child_rec, lint_card_rec, card, failures)
     log(f"judging {JUDGE_S[0]:.3f} s (every artifact through "
         f"opendht_tpu_torch.tools; written to {ARTIFACT_DIR})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -7705,6 +7842,8 @@ if __name__ == "__main__":
         sys.exit(host_child())
     if sys.argv[1:] == ["--secure-child"]:
         sys.exit(secure_child())
+    if sys.argv[1:] == ["--lint-child"]:
+        sys.exit(lint_child())
     try:
         rc = main()
     finally:

@@ -459,8 +459,10 @@ class DeviceIndex:
             amid = (lo[act] + hi[act]) // 2
             amid2 = np.minimum(amid + 1, s - 1)
             # Both probes' node keys in one hash batch (rows then rows + 1).
+            # graftlint: disable=sync-in-loop (the PHT leaf search decides each key's next probe depth on the host: one hash readback a search round, bounded by probe_round_bound)
             keys = self._node_hash(np.concatenate([bits_np[act]] * 2),
                                    np.concatenate([amid, amid2]))
+            # graftlint: disable=sync-in-loop (the canary get of the same search round, read back once a round; its hits steer the host binary search)
             hit, val, _ = self._get(keys.astype(np.uint32))
             is_pht = hit & (val == CANARY_TOKEN)
             first = is_pht[:act.size]
@@ -536,6 +538,7 @@ class DeviceIndex:
             aehash = np.stack([all_ehash[i] for i in work])
             aevid = np.asarray([all_evid[i] for i in work], np.uint32)
             depth = self.leaf_search(abits)
+            # graftlint: disable=sync-in-loop (insert pass: the leaf entries are read back once a pass to decide splits on the host)
             tkeys, valid, n_eh, n_ev, n_eb = self.read_node_entries(
                 abits, depth)
 
@@ -638,7 +641,9 @@ class DeviceIndex:
             if canary_jobs:
                 cb = np.stack([b for b, _ in canary_jobs])
                 cd = np.asarray([d for _, d in canary_jobs], np.int32)
+                # graftlint: disable=sync-in-loop (insert pass: one hash readback of the canary keys a pass (the host writes the chain before the value put))
                 ckeys = self._node_hash(cb, cd)
+                # graftlint: disable=sync-in-loop (insert pass: the canary put draws its origins with one alive-count readback a pass)
                 self._put(ckeys, np.full(len(canary_jobs), CANARY_TOKEN,
                                          np.uint32),
                           np.zeros((len(canary_jobs),
@@ -649,8 +654,10 @@ class DeviceIndex:
                     self.spec, self._upload(np.stack(put_ehash)),
                     self._upload(np.asarray(put_evid, np.uint32)),
                     self._upload(np.stack(put_bits)))
+                # graftlint: disable=sync-in-loop (insert pass: the entry put draws its origins with one alive-count readback a pass)
                 self._put(np.stack(put_keys).astype(np.uint32),
                           np.asarray(put_vals, np.uint32),
+                          # graftlint: disable=sync-in-loop (insert pass: the packed payloads go to the host store batch once a pass)
                           pl.cpu().numpy())
                 self.stats["entry_puts"] += len(put_keys)
             work = next_work
@@ -698,6 +705,7 @@ class DeviceIndex:
                 raise RuntimeError("range walk exceeded max_leaves")
             act = np.nonzero(active)[0]
             depth = self.leaf_search(cur[act])
+            # graftlint: disable=sync-in-loop (range walk: the visited leaves' entries are read back once a step and filtered on the host)
             _tk, valid, eh, ev, eb = self.read_node_entries(
                 cur[act], depth)
             leaves[act] += 1
@@ -705,6 +713,7 @@ class DeviceIndex:
                 lo_t = tuple(lo_bits[q].tolist())
                 hi_t = tuple(hi_bits[q].tolist())
                 for sl in np.nonzero(valid[k])[0]:
+                    # graftlint: disable=sync-in-loop (eb is read_node_entries' numpy copy: .tolist() reads no tensor)
                     full = tuple(eb[k][sl].tolist())
                     if lo_t <= full <= hi_t:
                         ent = (eh[k][sl].astype(">u4").tobytes(),
@@ -721,6 +730,7 @@ class DeviceIndex:
                     & np.uint32(0xFFFFFFFF))
                 upper = np_mask_bits(upper, self.spec.prefix_bits)
                 nxt, carry = _np_increment(upper, self.spec.prefix_bits)
+                # graftlint: disable=sync-in-loop (nxt is _np_increment's numpy array: .tolist() reads no tensor)
                 if carry or tuple(nxt.tolist()) > tuple(
                         hi_bits[q].tolist()):
                     active[q] = False
@@ -761,8 +771,10 @@ class DeviceIndex:
                         owner.append(i)
             marked = np.zeros(len(kids_b), bool)
             if kids_b:
+                # graftlint: disable=sync-in-loop (trie snapshot: one hash readback a trie level of the breadth-first walk)
                 kk = self._node_hash(np.stack(kids_b),
                                      np.asarray(kids_d, np.int32))
+                # graftlint: disable=sync-in-loop (trie snapshot: one canary get a trie level, read back to expand the frontier on the host)
                 hit, val, _ = self._get(kk)
                 marked = hit & (val == CANARY_TOKEN)
             has_kid = np.zeros(len(frontier), bool)
@@ -775,6 +787,7 @@ class DeviceIndex:
             if leaf_rows:
                 lb = fb[leaf_rows]
                 ld = fd[leaf_rows]
+                # graftlint: disable=sync-in-loop (trie snapshot: the level's leaf entries, read back once a level)
                 _tk, valid, eh, ev, _eb = self.read_node_entries(lb, ld)
                 for k, i in enumerate(leaf_rows):
                     ents = frozenset(
@@ -953,6 +966,7 @@ class StoreDht:
     def _fire_listeners(self, hb: bytes) -> None:
         for entry in list(self._listeners.get(hb, ())):
             if entry in self._listeners.get(hb, ()):     # still listening
+                # graftlint: disable=sync-in-loop (host StoreDht listener delivery: one batched get a listener to fire, the host node's own cadence)
                 self._deliver(hb, entry)
 
 

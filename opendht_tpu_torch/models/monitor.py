@@ -197,6 +197,7 @@ def fold_sweep(fr: FreshnessState, found: torch.Tensor, probed: torch.Tensor,
         "probed_tracked": cnt(probed_node & palive0),
         "probed_seen": cnt(probed_node & palive0 & seen),
         "probed_missed": cnt(miss_hit),
+        # graftlint: disable=narrow-cast-unproven (the lag sum equals JAX's int32 reduction bit for bit, wrap included; the prover cannot bound a lag by the sweep count)
         "lag_sum": torch.where(detect, lag, 0).sum().to(torch.int32),
         "lag_count": cnt(detect),
         "lag_max": torch.where(detect, lag, -1).max().to(torch.int32),

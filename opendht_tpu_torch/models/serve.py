@@ -54,9 +54,10 @@ explicit ``torch.Generator`` unless given (``origins_of`` / ``origins``);
 
 from __future__ import annotations
 
+import itertools
 import math
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -950,6 +951,7 @@ def serve_open_loop(engine: ServeEngine, arrival_ts, keys,
             keys_np[:m] = keys[np.asarray(take)]
             origins = origins_of(adm_i)
             if use_cache:
+                # graftlint: disable=sync-in-loop (the cache-probed admission reads its hit mask back once a burst: hits are answered on the host without taking a slot)
                 st, hit, h_found, h_hops = engine.admit_probed(
                     st, keys_np, slots_np, origins, rnd)
                 for j, ri in enumerate(take):
@@ -981,6 +983,7 @@ def serve_open_loop(engine: ServeEngine, arrival_ts, keys,
         if degr:
             dk = np.zeros((a_cap, N_LIMBS), np.uint32)
             dk[:len(degr)] = keys[np.asarray(degr)]
+            # graftlint: disable=sync-in-loop (the degrade policy's one cache probe a burst for the over-quota requests, answered on the host)
             d_hit, d_found, _d_hops = engine.probe_cache(dk)
             for j, ri in enumerate(degr):
                 if d_hit[j]:
@@ -1157,6 +1160,7 @@ def closed_loop_replay(swarm: Swarm, cfg: SwarmConfig,
         for _ in range(n):
             st = eng.step(st, rnd)
             rnd += 1
+        # graftlint: disable=sync-in-loop (per-burst done-check readback, amortized over >=2 device rounds: the burst replay's contract; resident_closed_loop_replay runs the same workload with zero in-loop polls)
         if eng.all_done(st):            # the one readback a burst
             break
         burst = 2
@@ -1266,6 +1270,7 @@ def _ring_enqueue(rings: ServeRings, keys: torch.Tensor, reqs: torch.Tensor,
     a = keys.shape[0]
     r = rings.rq_keys.shape[0]
     dev = keys.device
+    # graftlint: disable=host-call-in-jit (under a capture n_new is the packed input's 0-d int32 tensor on the card (ResidentServeEngine._graph), so as_tensor copies nothing; a Python int comes only from the eager path)
     n_new = torch.as_tensor(n_new, dtype=torch.int32, device=dev).clamp(0, a)
     space = r - (rings.tail - rings.head)
     n_in = torch.minimum(n_new, space)
@@ -1316,6 +1321,7 @@ def _cache_fill_sorted(cache: ResultCache, keys: torch.Tensor,
     last = torch.cat([cs_s[1:] != cs_s[:-1],
                       torch.ones((1,), dtype=torch.bool, device=cs.device)])
     eff = torch.where(last & (cs_s < k_slots), cs_s, k_slots)
+    # graftlint: disable=host-call-in-jit (under a capture rnd is the packed input's 0-d int32 tensor on the card (ResidentServeEngine._graph), so as_tensor copies nothing; a Python int comes only from the eager path)
     r32 = torch.as_tensor(rnd, dtype=torch.int32, device=cs.device).expand(m)
     return cache._replace(
         keys=_set_rows(cache.keys, eff, keys[row_s]),
@@ -1372,10 +1378,12 @@ def _resident_rounds(swarm: Swarm, cfg: SwarmConfig, st: LookupState, rnd0,
 
     if not gated:
         it = 0
+        # graftlint: disable=sync-in-loop,tracer-coercion,host-callback (the early-exit form (gated=False) runs eagerly only, one poll a round as JAX's while_loop cond; a capture takes the gated form, which reads nothing back)
         while it < rounds and bool((~st.done).any()):
             counts = counts + (lanes == rung(st)).to(torch.int32)
             st = lookup_step(swarm, cfg, st, rnd=rnd0 + it)
             it += 1
+        # graftlint: disable=host-call-in-jit (the eager early-exit form only; the gated form a capture records makes no tensor from host data)
         return st, torch.tensor(it, dtype=torch.int32, device=dev), counts
     run = torch.zeros((), dtype=torch.int32, device=dev)
     for it in range(rounds):
@@ -1488,8 +1496,11 @@ def _resident_step_cached(swarm: Swarm, cfg: SwarmConfig, st: LookupState,
 
 # CUDA graphs captured by the resident engines in this process (what the
 # cost ledger's compile count reads: a capture inside a clocked pass is
-# the counterpart of a compile).
+# the counterpart of a compile), and captures by (engine, graph key) —
+# graftlint's budget plane holds each key to one capture an engine.
 GRAPH_CAPTURES = 0
+GRAPH_KEYS: Counter = Counter()
+_ENGINE_SERIALS = itertools.count()
 
 
 def _resident_replay(graph: "torch.cuda.CUDAGraph") -> None:
@@ -1708,6 +1719,8 @@ class ResidentServeEngine(ServeEngine):
                               dict(mesh.captured_bytes))
         global GRAPH_CAPTURES
         GRAPH_CAPTURES += 1
+        serial = self.__dict__.setdefault("_serial", next(_ENGINE_SERIALS))
+        GRAPH_KEYS[(serial, key)] += 1
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):       # the default (global) capture mode
             st, rings, cache, out = body()
@@ -1753,6 +1766,7 @@ class ResidentServeEngine(ServeEngine):
                 on_card.append((lo, hi, x))
             else:
                 host[lo:hi] = np.asarray(
+                    # graftlint: disable=sync-in-loop (x lies on the CPU on this branch (card tensors take the on_card list): .cpu() copies and waits for nothing)
                     x.cpu() if isinstance(x, torch.Tensor) else x).reshape(-1)
         host[8 * a] = int(n_new)
         host[8 * a + 1] = int(rnd0)
@@ -2124,6 +2138,7 @@ def serve_resident(engine: ResidentServeEngine, arrival_ts, keys,
                 enq_wall[take_np] = now
             td = clock()
             t_d = pc()
+            # graftlint: disable=sync-in-loop (macro_step reads nothing back: on the card it waits only for its own pinned input buffer's copy from two steps back (double-buffered) and .numpy() views that host buffer; the step's one readback is read_out below)
             st, rings, out = engine.macro_step(
                 st, rings, keys_np, reqs_np, np.zeros((a_cap,), np.int32),
                 origins_of(it_i), m, rnd)
@@ -2140,6 +2155,7 @@ def serve_resident(engine: ResidentServeEngine, arrival_ts, keys,
             o, r0 = pend
             tb = clock()
             t_b = pc()
+            # graftlint: disable=sync-in-loop (double-buffered drain: reads macro k's output while macro k+1 computes: the resident loop's one readback a macro step)
             o = engine.read_out(o)     # macro k's output, while k+1 runs
             walls["drain_blocked"] += pc() - t_b
             blocked_s += clock() - tb

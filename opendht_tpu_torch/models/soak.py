@@ -152,6 +152,7 @@ def _ring_enqueue_maintenance(rings, pool_keys: torch.Tensor,
     request index encoded ``-2 - pool_idx`` (client requests use ``>=
     0``, ``-1`` is the never-written sentinel)."""
     pkeys = pool_keys[pool_idx.clamp(0, pool_keys.shape[0] - 1).long()]
+    # graftlint: disable=narrow-cast-unproven (pool_idx indexes the sweep's key pool, -1 padding: -2 - pool_idx lies in [-1 - pool, -1], far inside int32; its int64 host upload carries no bound)
     reqs = (-2 - pool_idx).to(torch.int32)
     cls_a = torch.full(pool_idx.shape, int(cls), dtype=torch.int32,
                        device=pool_idx.device)
@@ -887,6 +888,7 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
                 soak.store_now += 1
                 soak.serve.invalidate_cache()
             if r_rows:
+                # graftlint: disable=sync-in-loop (a chunked read batch is verified on the host: one readback a flushed batch, not a round)
                 soak.chunk.read(
                     soak.swarm, soak.store,
                     [int(scan_lo[ri]) for ri in r_rows],
@@ -913,6 +915,7 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
             ev = events[ev_i]
             ev_i += 1
             t_ev = clock()
+            # graftlint: disable=sync-in-loop (a churn event rebuilds the alive plane and reads the alive count once an event (events are seconds apart))
             _apply_event(soak, ev, ev_i)
             if timeline is not None:
                 timeline.note_op(f"scenario-{ev.kind}", now,
@@ -973,6 +976,7 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
                 admit_wall[ri] = now
                 adm_c[wcls] += 1
             keys_np[:m] = keys[np.asarray(take)]
+            # graftlint: disable=sync-in-loop (the soak's cache-probed admission reads its hit mask back once a burst, as serve_open_loop's does)
             st, hit, h_found, _h_hops = soak.admit_serve(
                 st, keys_np, slots_np, cls_np, origins_of(adm_i), rnd)
             adm_i += 1
@@ -1020,10 +1024,12 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
             mon_sweep = soak.begin_monitor_sweep(now)
         if do_maint and repub_sweep is None and not sched_done \
                 and now >= next_repub_t:
+            # graftlint: disable=sync-in-loop (a republish sweep starts with one live-row count readback a sweep period)
             repub_sweep = soak.begin_repub_sweep(now)
             if repub_sweep is None:       # empty store: re-arm later
                 next_repub_t = now + scfg_soak.repub_period_s
         if next_listen_t is not None and now >= next_listen_t:
+            # graftlint: disable=sync-in-loop (the listen / expiry sweeps run once a sweep period, timed to a barrier)
             rec = soak.run_store_sweeps(now, clock)
             next_listen_t = now + scfg_soak.listen_period_s
             if timeline is not None:
@@ -1232,6 +1238,7 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
 
         # --- close drained sweeps, re-arm their cadence
         if mon_sweep is not None and mon_sweep.drained:
+            # graftlint: disable=sync-in-loop (a drained monitor sweep is closed with one readback of its fold, once a sweep)
             mon_sweep_records.append(soak.finish_monitor_sweep(mon_sweep, w))
             if timeline is not None:
                 timeline.note_sweep("monitor", mon_sweep_records[-1], w)
@@ -1239,6 +1246,7 @@ def soak_open_loop(soak: SoakEngine, arrival_ts, keys,
             next_mon_t = w + scfg_soak.monitor_gap_s
         if repub_sweep is not None and repub_sweep.drained:
             repub_done_records.append(
+                # graftlint: disable=sync-in-loop (a drained republish sweep is closed with one readback of its replica accumulator, once a sweep)
                 soak.finish_repub_sweep(repub_sweep, w))
             if timeline is not None:
                 timeline.note_sweep("repub", repub_done_records[-1], w)

@@ -686,6 +686,7 @@ def _listen_apply(store: SwarmStore, scfg: StoreConfig,
     a = accept.nonzero().squeeze(1)
     nn, ns = s_node[a], slot[a]         # distinct: ranks < ls per node
     store.lkeys[nn, ns] = s_key[a]
+    # graftlint: disable=narrow-cast-unproven (accepted rows have 0 <= req_id < max_listeners (the req_node mask above), which the interval of reg_ids cannot see)
     store.lids[nn, ns] = s_id[a].to(torch.int32)
     store.lexps[nn, ns] = ((now + scfg.listen_ttl) & MASK32
                            if scfg.listen_ttl else 0)

@@ -418,9 +418,9 @@ def _build_ids(generator: torch.Generator, cfg: SwarmConfig,
 def _build_bucket(tables: torch.Tensor, ids0: torch.Tensor, b: int,
                   u: torch.Tensor, cfg: SwarmConfig,
                   alive: torch.Tensor | None = None,
-                  rows: slice | None = None) -> None:
+                  rows: slice | None = None) -> torch.Tensor:
     """Fill bucket ``b`` of every node's table in place from the uniform
-    draws ``u [N,K]`` (float32).  With ``rows`` only those nodes' rows
+    draws ``u [N,K]`` (float32) and return ``tables``.  With ``rows`` only those nodes' rows
     are computed (``tables`` then holds just them, as a rank's shard
     does, and ``u`` is still ``[N,K]``).
 
@@ -445,9 +445,10 @@ def _build_bucket(tables: torch.Tensor, ids0: torch.Tensor, b: int,
     pref = ids0 >> (32 - d)
     if alive is None:
         counts = torch.bincount(pref, minlength=1 << b_total)
-    else:      # integer-valued float64 weights: exact below 2^53
-        counts = torch.bincount(pref, weights=alive.to(torch.float64),
-                                minlength=1 << b_total).to(torch.int64)
+    else:      # an exact integer count of the alive nodes a prefix
+        counts = torch.zeros(1 << b_total, dtype=torch.int64,
+                             device=pref.device).index_add_(
+            0, pref, alive.to(torch.int64))
     bounds = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
     if rows is not None:
         pref, u = pref[rows], u[rows]
@@ -474,6 +475,7 @@ def _build_bucket(tables: torch.Tensor, ids0: torch.Tensor, b: int,
         tables[:, b * 3 * k:(b + 1) * 3 * k] = row.to(torch.uint16)
     else:
         tables[:, b * k:(b + 1) * k] = samp.to(torch.int32)
+    return tables
 
 
 def build_tables(ids0: torch.Tensor, cfg: SwarmConfig,
@@ -490,7 +492,7 @@ def build_tables(ids0: torch.Tensor, cfg: SwarmConfig,
         tables = torch.full((n, b_total * k), -1, dtype=torch.int32,
                             device=dev)
     for b in range(b_total):
-        _build_bucket(tables, ids0, b, draws(b), cfg)
+        tables = _build_bucket(tables, ids0, b, draws(b), cfg)
     return tables
 
 
@@ -621,7 +623,7 @@ def _select_alpha(st: LookupState, cfg: SwarmConfig):
     unq = (st.idx >= 0) & ~st.queried
     order = torch.cumsum(unq.to(torch.int64), dim=1)
     ranks = torch.arange(1, cfg.alpha + 1, device=unq.device)
-    oh = unq[:, :, None] & (order[:, :, None] == ranks)       # [L,S,A]
+    oh = unq[:, :, None] & (order[:, :, None] == ranks[None, None, :])
     sel = torch.where(oh, st.idx[:, :, None], -1).amax(dim=1)
     sel_d0 = torch.where(oh, st.dist[:, :, None], 0).amax(dim=1)
     slots = torch.arange(st.idx.shape[1], device=unq.device)[None, :, None]
@@ -983,6 +985,7 @@ def run_burst_loop(step_fn, state, cfg: SwarmConfig,
         for _ in range(n):
             state = step_fn(state, rounds)
             rounds += 1
+        # graftlint: disable=sync-in-loop (per-burst done-check readback, amortized over >=2 device rounds: the burst loop's contract; the resident serve loop is the zero-per-burst-poll alternative)
         if bool(done_of(state).all()):      # the one readback per burst
             break
         burst = 2
@@ -1091,6 +1094,7 @@ def run_compacted_burst_loop(step_fn, st: LookupState, cfg: SwarmConfig,
             rounds += 1
         if w not in widths:
             widths.append(w)
+        # graftlint: disable=sync-in-loop (per-burst pending + watermark readback, one transfer a burst amortized over >=2 device rounds: it steers the row and merge-width ladders)
         pending, wneed = _pending_and_wneed(sub, cfg)
         if pending == 0:
             break

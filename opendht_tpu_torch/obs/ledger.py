@@ -96,14 +96,18 @@ _PKG = "opendht_tpu_torch"
 # entry-point registry
 # ---------------------------------------------------------------------------
 
-# (module, attribute, arguments overwritten in place).
+# (module, attribute, arguments overwritten in place[, budget]).  The
+# budget of a row that launches kernels bounds how often each kernel
+# source is built a process; that of ``serve._resident_replay`` how
+# often one resident engine captures one graph key (graftlint's
+# ``budget`` plane, ``tools/graftlint_ranges.py``).
 ENTRY_POINTS: tuple = (
     (f"{_PKG}.models.swarm", "_build_bucket", (0,)),
     (f"{_PKG}.models.swarm", "lookup_init", ()),
-    (f"{_PKG}.models.swarm", "lookup_step", ()),
-    (f"{_PKG}.models.swarm", "traced_lookup_step", (3,)),
+    (f"{_PKG}.models.swarm", "lookup_step", (), 1),
+    (f"{_PKG}.models.swarm", "traced_lookup_step", (3,), 1),
     (f"{_PKG}.models.swarm", "chaos_lookup_init", ()),
-    (f"{_PKG}.models.swarm", "chaos_lookup_step", (7,)),
+    (f"{_PKG}.models.swarm", "chaos_lookup_step", (7,), 1),
     (f"{_PKG}.models.swarm", "_compact_slice", ()),
     (f"{_PKG}.models.swarm", "_compact_resize", ()),
     (f"{_PKG}.models.swarm", "_writeback_prefix", ()),
@@ -118,7 +122,7 @@ ENTRY_POINTS: tuple = (
     (f"{_PKG}.models.serve", "_snapshot", ()),
     (f"{_PKG}.models.serve", "_expire_slots", ()),
     (f"{_PKG}.models.serve", "_resident_core", ()),
-    (f"{_PKG}.models.serve", "_resident_replay", ()),
+    (f"{_PKG}.models.serve", "_resident_replay", (), 1),
     (f"{_PKG}.models.soak", "_scatter_wclass", ()),
     (f"{_PKG}.models.soak", "_admit_serve_cached", ()),
     (f"{_PKG}.models.soak", "_admit_maintenance", ()),
@@ -129,7 +133,7 @@ ENTRY_POINTS: tuple = (
     (f"{_PKG}.models.storage", "_store_insert", (0,)),
     (f"{_PKG}.models.storage", "_announce_insert", (2,)),
     (f"{_PKG}.models.storage", "_get_probe", ()),
-    (f"{_PKG}.models.storage", "_listen_insert", ()),
+    (f"{_PKG}.models.storage", "_listen_insert", (2,)),
     (f"{_PKG}.models.index", "_linearize_batch", ()),
     (f"{_PKG}.models.index", "_trie_node_hash", ()),
     (f"{_PKG}.models.index", "_pack_entry_payloads", ()),
@@ -140,7 +144,7 @@ ENTRY_POINTS: tuple = (
     (f"{_PKG}.models.chunked_values", "_chunked_root_ok", ()),
     (f"{_PKG}.models.monitor", "fold_sweep", ()),
     (f"{_PKG}.parallel.sharded", "sharded_lookup_init", ()),
-    (f"{_PKG}.parallel.sharded", "sharded_lookup_step", ()),
+    (f"{_PKG}.parallel.sharded", "sharded_lookup_step", (), 1),
     (f"{_PKG}.parallel.sharded", "_compact", ()),
     (f"{_PKG}.parallel.sharded", "_rebalance", ()),
     (f"{_PKG}.parallel.sharded", "_sharded_resident_step", ()),
@@ -150,9 +154,8 @@ ENTRY_POINTS: tuple = (
 
 def entry_row(row) -> tuple:
     """Normalize an :data:`ENTRY_POINTS` row to ``(module, attr,
-    overwritten_argnums, None)`` — JAX's four-field shape (the port
-    declares no specialization budget)."""
-    return row[0], row[1], tuple(row[2]), None
+    overwritten_argnums, budget-or-None)`` — JAX's four-field shape."""
+    return row[0], row[1], tuple(row[2]), row[3] if len(row) > 3 else None
 
 
 def step_cache_size() -> int:
@@ -619,11 +622,13 @@ def measure_round_phases(swarm, cfg, targets, generator=None,
         upto = upto_of.get(name, name)
         fn = _round_prefix_fn(upto, merge_w=merge_w)
         fn(swarm, cfg, st)                              # warm
+        # graftlint: disable=sync-in-loop (dedicated timing pass: warm-up barrier before the clocked repeats, never on a serving path)
         _sync(dev)
         best = float("inf")
         for _ in range(max(1, repeats)):
             t0 = time.perf_counter()
             out = fn(swarm, cfg, st)
+            # graftlint: disable=sync-in-loop (dedicated timing pass: the barrier IS the measurement, never on a serving path)
             _sync(dev)
             best = min(best, time.perf_counter() - t0)
         walls.append(best)
@@ -637,6 +642,7 @@ def measure_round_phases(swarm, cfg, targets, generator=None,
     for _ in range(max(1, repeats)):
         t0 = time.perf_counter()
         sw.lookup_step(swarm, cfg, st, merge_w=merge_w)
+        # graftlint: disable=sync-in-loop (dedicated timing pass: the barrier IS the measurement, never on a serving path)
         _sync(dev)
         step_best = min(step_best, time.perf_counter() - t0)
     for name, a, b in zip(sw.LookupState._fields, full_out, ref):

@@ -61,7 +61,8 @@ def unpack_pair_window(win: torch.Tensor, w0: torch.Tensor,
     lo, hi, s16 = win[..., :k], win[..., k:2 * k], win[..., 2 * k:]
     idx = as_i32(lo | (hi << 16))
     valid = ok[:, :, None, None] & (idx >= 0)
-    wr = w0[:, :, None, None] + torch.arange(2, device=w0.device)[:, None]
+    wr = w0[:, :, None, None] + torch.arange(
+        2, device=w0.device).view(1, 1, 2, 1)
     d0 = window_d0(s16, wr, target0[:, None, None, None],
                    nid_d0[:, :, None, None])
     return torch.where(valid, idx, -1), torch.where(valid, d0, U32_MAX)
@@ -77,7 +78,7 @@ def fold_solicitations(fr_idx: torch.Tensor, fr_d0: torch.Tensor,
     against ``arange(S)`` needs no out-of-range index (``sel_pos = -1``
     hits nothing).  Returns ``(idx, d0, queried)``."""
     slots = torch.arange(fr_idx.shape[1], device=fr_idx.device)
-    at = sel_pos[:, :, None] == slots                            # [L,A,S]
+    at = sel_pos[:, :, None] == slots[None, None, :]             # [L,A,S]
     queried = fr_q | (at & q_hit[:, :, None]).any(dim=1)
     evict = (at & e_hit[:, :, None]).any(dim=1)
     return (torch.where(evict, -1, fr_idx), torch.where(evict, U32_MAX, fr_d0),

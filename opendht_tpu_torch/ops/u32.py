@@ -32,6 +32,7 @@ def as_u32(x: torch.Tensor) -> torch.Tensor:
 def as_i32(x: torch.Tensor) -> torch.Tensor:
     """Reinterpret u32 values (int64) as int32 — the bitcast
     ``lax.bitcast_convert_type(x, int32)``."""
+    # graftlint: disable=narrow-cast-unproven (the u32 -> int32 bitcast: each branch of the where lies in [-2^31, 2^31 - 1] (x >= 2^31 takes x - 2^32), which an interval join of the branches cannot see)
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 

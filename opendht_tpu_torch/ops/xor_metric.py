@@ -348,6 +348,7 @@ def rank_merge_round_d0_w(fr_idx: torch.Tensor, fr_d0: torch.Tensor,
     l, s = fr_idx.shape
     c = resp_idx.shape[1]
     if (merge_w is None or merge_w >= c
+            # graftlint: disable=tracer-coercion,host-callback (the merge-width ladder runs on the CPU only: on the card, and so in every capture, the merge is the K1 kernel at full width and merge_w never reaches here)
             or bool((resp_idx[:, merge_w:] >= 0).any())):
         return rank_merge_round_d0(fr_idx, fr_d0, fr_q, resp_idx,
                                    resp_d0, keep)

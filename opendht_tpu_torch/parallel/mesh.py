@@ -236,6 +236,7 @@ def gather_many(mesh: Mesh, xs) -> list:
     out, c = [], 0
     for x in xs:
         w = math.prod(x.shape[1:])
+        # graftlint: disable=narrow-cast-unproven (each column returns to its own dtype: it was widened exactly from that dtype when packed above, but the packed matrix's interval joins every column)
         out.append(flat[:, c:c + w].reshape(-1, *x.shape[1:]).to(x.dtype))
         c += w
     return out

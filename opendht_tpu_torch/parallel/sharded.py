@@ -412,9 +412,11 @@ def _pack_rows(st: LookupState, order: torch.Tensor,
 
 def _unpack_rows(rows: torch.Tensor, s: int):
     st = LookupState(
+        # graftlint: disable=narrow-cast-unproven (idx was int32 columns packed by _pack_rows (exact widening); the packed matrix's interval joins every column)
         targets=rows[:, 5:10], idx=rows[:, 10:10 + s].to(torch.int32),
         dist=rows[:, 10 + s:10 + 2 * s],
         queried=rows[:, 10 + 2 * s:10 + 3 * s] != 0,
+        # graftlint: disable=narrow-cast-unproven (hops was an int32 column packed by _pack_rows (exact widening); the packed matrix's interval joins every column)
         done=rows[:, 4] != 0, hops=rows[:, 3].to(torch.int32))
     return st, rows[:, 2]
 
@@ -549,6 +551,7 @@ def sharded_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
             widths.append(w)
         if merge_w not in merge_widths:
             merge_widths.append(merge_w)
+        # graftlint: disable=sync-in-loop (per-burst pending + watermark readback across the mesh, one all_gather and one transfer a burst: it steers the ladder (_sharded_resident_step is the zero-poll alternative))
         pend, wneed = _shard_pending_and_wneed(mesh, sub, cfg)
         total = sum(pend)
         if total == 0:
@@ -633,6 +636,7 @@ def _resident_rounds_routed(mesh: Mesh, swarm: Swarm, cfg: SwarmConfig,
     if not gated:
         it = xr = 0
         while it < rounds:
+            # graftlint: disable=sync-in-loop,tracer-coercion,host-callback (the early-exit form (gated=False) runs eagerly only, one psum'd poll a round as JAX's while_loop cond; a capture takes the gated form)
             n_pend = int(pending(st))
             if n_pend == 0:
                 break
@@ -883,6 +887,7 @@ def contended_lookup(swarm: Swarm, cfg: SwarmConfig, targets: torch.Tensor,
     st = init_impl(swarm.ids, base, cfg, targets, origins.to(dev))
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
     attempted = torch.zeros((), dtype=torch.int64, device=dev)
+    # graftlint: disable=sync-in-loop (the eager form of JAX's jitted while_loop: one done / hop-bound poll a round, the capacity study's path, never a serving one)
     while not bool(st.done.all()) and int(st.hops.max()) < cfg.max_steps:
         sel, _, _ = _select_alpha(st, cfg)
         sel = torch.where(st.done[:, None], -1, sel)

@@ -553,6 +553,7 @@ def sharded_republish(swarm: Swarm, cfg: SwarmConfig, store: SwarmStore,
         # A dead republisher or an empty slot announces to no one.
         okf = (swarm.alive[node][:, None] & used).reshape(-1)
         keys = keys.reshape(-1, N_LIMBS)
+        # graftlint: disable=sync-in-loop (the routed republish walks the store in node chunks: one routed lookup (with its per-burst readbacks) a chunk)
         res = _lookup(swarm, cfg, keys, mesh, generator,
                       origins_of(i) if origins_of is not None else None,
                       capacity_factor)
